@@ -1,0 +1,183 @@
+"""The neural inference slice of ``pipeline.py`` from a precomputed voxel grid:
+
+  generate_neural_segmentation — clip_features_{features,mask}.npy +
+      clip_features.npz -> both U-Nets -> sample_{k}_pred.npy ->
+      denormalization -> mapped_preds.ply  (pipeline.py:187-317)
+  run_physics_simulation       — mapped_preds.ply -> MPM rollout ->
+      ply_files/frame_%04d.ply + sim_info.json  (pipeline.py:328-375)
+
+The stage functions take explicit arguments (no config tree needed);
+``main(argv)`` composes the same ``key=value`` overrides as ``pipeline.py``
+through ``pixie_tpu.config`` and runs both stages.  The voxelizer and the
+training stages are not in this port.
+
+Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pixie_tpu_torch.train.inference import (
+    CombinedInference, infer_single_device, load_params,
+)
+from pixie_tpu_torch.utils.norm import load_normalization_ranges
+from pixie_tpu_torch.utils.paths import voxel_artifact_paths
+from pixie_tpu_torch.voxel.map_pred_to_coords import map_pred_to_ply
+
+REPO_NORMALIZATION = (Path(__file__).resolve().parent.parent / "normalization_stats"
+                      / "normalization_ranges.yaml")
+
+
+def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
+    """Highest ``epoch_k`` entry, as pixie_tpu/train/trainer.py:latest_checkpoint
+    finds it; ``epoch_k.pth`` files (the reference's checkpoint names) count
+    too, where the JAX function skips them."""
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    candidates = []
+    for p in ckpt_dir.glob("epoch_*"):
+        try:
+            candidates.append((int(p.name.split("_")[1].split(".")[0]), p))
+        except (IndexError, ValueError):
+            continue
+    return max(candidates)[1] if candidates else None
+
+
+def generate_neural_segmentation(
+    render_output: str | Path,
+    neural_dir: str | Path,
+    obj_id: str,
+    seg_ckpt_dir: str | Path,
+    cont_ckpt_dir: str | Path,
+    ranges_path: str | Path | None = None,
+    sample_id: int = 0,
+    grid_size: int = 64,
+    feature_channels: int = 768,
+    num_classes: int = 8,
+    background_id: int = 7,
+    model_kwargs: dict | None = None,
+    overwrite: bool = False,
+    device: str | torch.device = "cuda",
+) -> Path:
+    """U-Net inference on the voxel grid -> ``mapped_preds.ply``; returns its path."""
+    render_output = Path(render_output)
+    mapped_ply = render_output / f"sample_{sample_id}" / "mapped_preds.ply"
+    if mapped_ply.exists() and not overwrite:
+        logging.info("[neural] %s exists, skipping", mapped_ply)
+        return mapped_ply
+    if ranges_path is None or not Path(ranges_path).exists():
+        ranges_path = REPO_NORMALIZATION
+    ranges = load_normalization_ranges(ranges_path)
+
+    seg_ckpt = latest_checkpoint(seg_ckpt_dir)
+    cont_ckpt = latest_checkpoint(cont_ckpt_dir)
+    if seg_ckpt is None or cont_ckpt is None:
+        raise FileNotFoundError(
+            f"U-Net checkpoints not found under {seg_ckpt_dir} / {cont_ckpt_dir}")
+
+    art = voxel_artifact_paths(str(render_output))
+    feats = np.load(art["features"])
+    want = (grid_size,) * 3 + (feature_channels,)
+    if feats.shape != want:
+        raise ValueError(f"voxel grid {feats.shape} != {want} expected by the U-Net")
+    infer = CombinedInference(
+        load_params(seg_ckpt), load_params(cont_ckpt), grid_size=grid_size,
+        feature_channels=feature_channels, num_classes=num_classes,
+        background_id=background_id, model_kwargs=model_kwargs, device=device)
+    infer_single_device(infer, torch.as_tensor(feats, device=infer.device),
+                        np.load(art["mask"]), obj_id, sample_id, neural_dir)
+    mapped_ply.parent.mkdir(parents=True, exist_ok=True)
+    map_pred_to_ply(
+        pred_path=Path(neural_dir) / obj_id / f"sample_{sample_id}_pred.npy",
+        mask_path=art["mask"], grid_feature_path=art["npz"],
+        output_path=mapped_ply, obj_id=obj_id, ranges=ranges)
+    return mapped_ply
+
+
+def run_physics_simulation(
+    material_ply: str | Path,
+    sim_config: str | Path,
+    output_dir: str | Path,
+    n_frames: int | None = None,
+    save_ply: bool = True,
+    debug: bool = False,
+    gaussian_checkpoint: str | Path | None = None,
+    overwrite: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict | None:
+    """MPM rollout of the material PLY (point-cloud mode); returns sim info,
+    or None when ``sim_info.json`` exists and ``overwrite`` is off."""
+    from pixie_tpu_torch.sim.driver import run_simulation  # noqa: PLC0415
+
+    output_dir = Path(output_dir)
+    if (output_dir / "sim_info.json").exists() and not overwrite:
+        logging.info("[sim] %s exists, skipping", output_dir)
+        return None
+    if not Path(sim_config).exists():
+        raise FileNotFoundError(f"physics config not found: {sim_config}")
+    return run_simulation(point_cloud_path=material_ply, config_path=sim_config,
+                          output_dir=output_dir, n_frames=n_frames, save_ply=save_ply,
+                          debug=debug, gaussian_checkpoint=gaussian_checkpoint,
+                          device=device)
+
+
+def main(argv=None, device: str | torch.device = "cuda"):
+    """``pipeline.py``'s neural slice with its ``key=value`` overrides."""
+    from pixie_tpu.config import compose  # noqa: PLC0415  (imports only yaml)
+    from pixie_tpu_torch.utils.paths import (  # noqa: PLC0415
+        create_directories, get_output_paths, resolve_paths,
+    )
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    cfg = compose(overrides=list(sys.argv[1:] if argv is None else argv))
+    if not cfg.obj_id:
+        raise ValueError("obj_id is required: python -m pixie_tpu_torch.pipeline obj_id=...")
+    if cfg.material_mode != "neural":
+        raise NotImplementedError(f"material_mode={cfg.material_mode!r} is not ported")
+    cfg = resolve_paths(cfg)
+    paths = get_output_paths(cfg, cfg.obj_id)
+    create_directories(paths)
+
+    t0 = time.time()
+    tr = cfg.training
+    # the U-Net width of the config tree (defaults: the shipped nets)
+    model_kwargs = dict(cond_dim=tr.cond_dim, model_channels=tr.training.unet_model_channels,
+                        num_res_blocks=tr.training.unet_num_res_blocks,
+                        channel_mult=tuple(tr.training.unet_channel_mult),
+                        attention_resolutions=tuple(tr.training.attention_resolutions))
+    material_ply = generate_neural_segmentation(
+        paths["render_output"], paths["neural_base_dir"], cfg.obj_id,
+        cfg.paths.discrete_checkpoint_dir, cfg.paths.continuous_checkpoint_dir,
+        ranges_path=Path(cfg.paths.normalization_stats_dir) / "normalization_ranges.yaml",
+        sample_id=cfg.physics.sample_id, grid_size=tr.default_grid_size,
+        feature_channels=tr.feature_channels, num_classes=tr.num_material_classes,
+        background_id=tr.background_id, model_kwargs=model_kwargs,
+        overwrite=bool(cfg.overwrite), device=device)
+    # config resolution of pipeline.py:338-348
+    if cfg.get("is_objaverse_object", True):
+        sim_cfg = (Path(cfg.paths.physgaussian_config_dir) / "objaverse"
+                   / f"custom_{cfg.obj_class or 'tree'}_config.json")
+    else:
+        sim_cfg = (Path(cfg.paths.physgaussian_config_dir) / "real_scene"
+                   / f"custom_{cfg.obj_id}_config.json")
+    gs_ckpt = Path(paths["gs_output"])
+    run_physics_simulation(
+        material_ply, sim_cfg,
+        Path(paths["physgaussian_output"]) / f"sample_{cfg.physics.sample_id}",
+        n_frames=cfg.physics.get("n_frames"), save_ply=cfg.physics.save_ply,
+        debug=cfg.physics.debug,
+        gaussian_checkpoint=gs_ckpt if (gs_ckpt / "point_cloud").is_dir() else None,
+        overwrite=bool(cfg.overwrite), device=device)
+    logging.info("neural slice complete in %.1fs", time.time() - t0)
+
+
+if __name__ == "__main__":
+    main()
