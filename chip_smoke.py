@@ -7,15 +7,23 @@ at full width.
 
 Phases (any failure exits non-zero):
   1. device   — a CUDA device is required; prints nvidia-smi's name/power limit
-  2. build    — nvcc builds pixie_tpu_torch/csrc/transfer.cu for sm_90a
+  2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream}.cu for
+                sm_90a, one nvcc per source, started together
   3. kernels  — P2G / G2P kernels vs their plain versions on the card at the
-                slice's shapes (100k particles, n_grid 50), with timings
+                slice's shapes (100k particles, n_grid 50), and the tile blend
+                vs its plain version at the render's shapes (~100k seeded
+                gaussians at 800x800, the tree config's camera), with timings
   4. slice    — a seeded synthetic object (64^3 ball mask of ~100k voxels,
                 768-channel float16 features, clip_features.npz) through
                 pixie_tpu_torch.pipeline: both U-Nets at the shipped width ->
-                mapped_preds.ply -> 3 frames x 400 substeps of MPM under
-                config/objaverse/custom_tree_config.json; kernel launch
-                counts must equal the substeps run
+                mapped_preds.ply, then under
+                config/objaverse/custom_tree_config.json
+                (a) point-cloud mode: 1 frame x 400 substeps of MPM;
+                (b) GS mode: a seeded 3DGS checkpoint of ~100k gaussians
+                    (SH degree 3, 5 cameras at 800x800) -> 3 frames x 400
+                    substeps, each frame rendered to PNG + gaussian PLY;
+                each path's kernel launch counts must equal its substeps
+                (and, in GS mode, its frames)
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX or pixie_tpu.
 """
@@ -32,12 +40,16 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 N_PARTICLES, N_GRID, GRID_LIM, DT = 100_000, 50, 2.0, 1e-4
-N_FRAMES = 3
+N_FRAMES = 3             # GS path; the point-cloud path runs 1
+N_GAUSSIANS, RES = 100_000, 800
 # stated tolerances of phase 3, relative to the largest |value| of the plain
 # result: P2G sums ~170 float atomics per node in run-dependent order; G2P
 # sums 27 terms in a fixed order but contracts multiply-adds (FMA) where the
 # plain version rounds each op
 P2G_RTOL, G2P_RTOL = 1e-5, 1e-5
+# absolute, on colour and T in [0, 1]: the kernel's sequential product
+# against the plain version's log-domain chunked product, over <= 512 terms
+BLEND_ATOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -67,8 +79,9 @@ def phase_device():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
-    if not (HERE / "pixie_tpu_torch" / "csrc" / "transfer.cu").exists():
-        fail(f"pixie_tpu_torch sources not found beside {Path(__file__).name}")
+    for src in ("transfer.cu", "gs_stream.cu"):
+        if not (HERE / "pixie_tpu_torch" / "csrc" / src).exists():
+            fail(f"pixie_tpu_torch sources not found beside {Path(__file__).name}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -78,7 +91,7 @@ def phase_device():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
-    for mod in ("yaml", "sklearn", "scipy"):
+    for mod in ("yaml", "sklearn", "scipy", "PIL", "imageio"):
         try:
             __import__(mod)
             print(f"module {mod}: present")
@@ -87,15 +100,18 @@ def phase_device():
 
 
 def phase_build():
-    from pixie_tpu_torch.ops import build, transfer
+    from pixie_tpu_torch.ops import build, gs_stream, transfer
 
     t0 = time.time()
+    build.load_libraries("transfer", "gs_stream")  # one nvcc per source, both at once
     transfer.build()
-    print(f"build: transfer.cu -> {build.library_path('transfer').name} in "
-          f"{time.time() - t0:.2f} s", flush=True)
-    for line in build.BUILD_LOG.get("transfer", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    gs_stream.build()
+    print(f"build: transfer.cu, gs_stream.cu in {time.time() - t0:.2f} s", flush=True)
+    for name in ("transfer", "gs_stream"):
+        print(f"  {name}.cu -> {build.library_path(name).name}")
+        for line in build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def _slice_state(dev):
@@ -177,6 +193,80 @@ def phase_kernels(dev):
     return {"p2g": (p2g_err, *timings["p2g"]), "g2p": (g2p_err, *timings["g2p"])}
 
 
+def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES):
+    """Seeded 3DGS model and cameras.  Gaussians fill a ball of radius 0.44
+    (inside the object's voxel ball of radius 29/64, so every gaussian has a
+    material vertex within the kNN's 0.1), with log-scales near the mean
+    3-NN distance, random rotations, SH degree 3 and opacity logits mostly
+    above the 0.02 threshold; 5 cameras at res x res on a ring around it."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch.recon.gaussians import create_from_points
+    from pixie_tpu_torch.sim.camera import look_at_viewmat
+
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = (d * 0.44 * rng.uniform(size=(n, 1)) ** (1.0 / 3.0)).astype(np.float32)
+    params = create_from_points(pts, colors=rng.uniform(0.1, 0.9, (n, 3)), sh_degree=3,
+                                device=dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    q = rng.normal(size=(n, 4))
+    params.update(scaling=params["scaling"] + t(rng.normal(0.0, 0.2, (n, 3))),
+                  rotation=t(q / np.linalg.norm(q, axis=1, keepdims=True)),
+                  f_rest=t(rng.normal(0.0, 0.05, (n, 15, 3))),
+                  opacity=t(rng.normal(2.0, 1.5, (n, 1))))
+    cams = []
+    for i in range(5):
+        az = 2.0 * np.pi * i / 5
+        eye = 2.4 * np.array([np.cos(az) * np.cos(0.3), np.sin(az) * np.cos(0.3), np.sin(0.3)])
+        c2w = np.linalg.inv(look_at_viewmat(eye, [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]))
+        cams.append({"id": i, "img_name": f"view_{i:03d}", "width": res, "height": res,
+                     "position": c2w[:3, 3].tolist(), "rotation": c2w[:3, :3].tolist(),
+                     "fx": 1.375 * res, "fy": 1.375 * res})
+    return params, cams
+
+
+def phase_blend(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES):
+    """The tile blend at the render's shapes: the GS model seen from the
+    tree config's camera 4, through the port's projection and binning."""
+    import torch
+
+    from pixie_tpu_torch.ops import gs_stream
+    from pixie_tpu_torch.recon import rasterizer as R
+    from pixie_tpu_torch.sim.camera import viewmat_from_camera_entry
+
+    params, cams = _gs_model(dev, n_gaussians, res)
+    cam = cams[4]
+    vm = torch.as_tensor(viewmat_from_camera_entry(cam), device=dev)
+    bins = R.bin_tiles(params, vm, R.Camera(res, res, cam["fx"], cam["fy"], res / 2, res / 2))
+    args = (bins.feat, bins.idx, bins.starts, bins.counts, bins.tx_n, 0.0)
+    img_k, t_k = gs_stream.blend(*args)
+    img_p, t_p = gs_stream.blend_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((img_k - img_p).abs().max()), float((t_k - t_p).abs().max()))
+    busy = int((bins.counts > 0).sum())
+    print(f"blend: {n_gaussians} gaussians at {res}x{res}, {bins.starts.shape[0]} tiles "
+          f"({busy} with splats), {bins.idx.shape[0]} tile entries; largest tile count "
+          f"{int(bins.raw.max())}, tiles cut by tile_cap 512: {int((bins.raw > 512).sum())}; "
+          f"JAX's stream would overflow: {R.jax_stream_overflows(bins)}")
+    print(f"blend: max_abs_err {err:.3e} on colour and T (tol {BLEND_ATOL:.0e}); "
+          f"min T {float(t_k.min()):.3e}")
+    if not err <= BLEND_ATOL:
+        fail("gs blend kernel disagrees with its plain version")
+    if not float(t_k.min()) < 0.5:
+        fail("the blend scene is nearly transparent: nothing was tested")
+    k_ms, p_ms = cuda_ms(lambda: gs_stream.blend(*args)), cuda_ms(
+        lambda: gs_stream.blend_plain(*args))
+    print(f"gs_blend: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 CUDA-event "
+          f"timings, {res}x{res}, tile_cap 512)", flush=True)
+    return err, k_ms, p_ms
+
+
 def _make_object(root: Path, d: int, fc: int, model_kwargs: dict):
     """Seeded synthetic object and U-Net checkpoints (ball of radius 29/64 d)."""
     import numpy as np
@@ -211,17 +301,21 @@ def _make_object(root: Path, d: int, fc: int, model_kwargs: dict):
 
 
 def phase_slice(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = None,
-                n_frames: int = N_FRAMES):
+                n_frames: int = N_FRAMES, n_gaussians: int = N_GAUSSIANS, res: int = RES):
     """The main path at the shipped width (defaults: 64^3 x 768, U-Nets with
-    model_channels 64, mult (1,1,2,4), 3 res blocks, projector 768->128->32)."""
+    model_channels 64, mult (1,1,2,4), 3 res blocks, projector 768->128->32;
+    ~100k gaussians rendered at 800x800).  Returns the GS path's launches."""
     import numpy as np
     import torch
+    from PIL import Image
 
     from pixie_tpu_torch import pipeline
-    from pixie_tpu_torch.ops import transfer
+    from pixie_tpu_torch.ops import gs_stream, transfer
+    from pixie_tpu_torch.recon.gaussians import load_gaussian_ply, save_gaussian_ply
     from pixie_tpu_torch.train.inference import CombinedInference, load_params
     from pixie_tpu_torch.utils.io import read_ply
 
+    tree_cfg = HERE / "config" / "objaverse" / "custom_tree_config.json"
     with tempfile.TemporaryDirectory(prefix="pixie_smoke_") as tmp:
         root = Path(tmp)
         t0 = time.time()
@@ -266,32 +360,74 @@ def phase_slice(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = Non
         del infer, feat_dev
         torch.cuda.empty_cache()
 
-        transfer.P2G_LAUNCHES = 0
-        transfer.G2P_LAUNCHES = 0
+        # (a) point-cloud mode, one frame
+        transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = gs_stream.BLEND_LAUNCHES = 0
         sim_out = root / "sim"
-        info = pipeline.run_physics_simulation(
-            ply, HERE / "config" / "objaverse" / "custom_tree_config.json", sim_out,
-            n_frames=n_frames, debug=True, device=dev)
-        launches = {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES}
-        substeps = n_frames * info["substeps_per_frame"]
-        print(f"mpm: {info['n_particles']} particles, {n_frames} frames x "
-              f"{info['substeps_per_frame']} substeps, materials {info['active_materials']}, "
+        info = pipeline.run_physics_simulation(ply, tree_cfg, sim_out, n_frames=1, debug=True,
+                                               device=dev)
+        launches = {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
+                    "gs_blend": gs_stream.BLEND_LAUNCHES}
+        substeps = info["substeps_per_frame"]
+        print(f"mpm (point cloud): {info['n_particles']} particles, 1 frame x {substeps} "
+              f"substeps, materials {info['active_materials']}, "
               f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
               f"{info['median_frame_s']:.3f} s; launches {launches}", flush=True)
-        if launches != {"p2g": substeps, "g2p": substeps}:
-            fail(f"kernel launches {launches} != substeps run {substeps}")
+        if launches != {"p2g": substeps, "g2p": substeps, "gs_blend": 0}:
+            fail(f"point-cloud launches {launches} != substeps run {substeps}")
         frames = sorted((sim_out / "ply_files").glob("frame_*.ply"))
-        if len(frames) != n_frames:
-            fail(f"{len(frames)} frame PLYs, expected {n_frames}")
-        for f in frames:
-            v = read_ply(f)["vertex"]
-            if len(v) != info["n_particles"] or not all(np.isfinite(v[k]).all() for k in "xyz"):
-                fail(f"{f.name}: non-finite or missing positions")
+        if len(frames) != 1:
+            fail(f"{len(frames)} frame PLYs, expected 1")
+        v = read_ply(frames[0])["vertex"]
+        if len(v) != info["n_particles"] or not all(np.isfinite(v[k]).all() for k in "xyz"):
+            fail(f"{frames[0].name}: non-finite or missing positions")
         if not info["final_state_finite"]:
             fail("non-finite positions after the last substep")
         for name in ("sim_info.json", "boundary_conditions.json"):
             if not (sim_out / name).exists():
                 fail(f"missing artifact {name}")
+
+        # (b) GS mode: a seeded 3DGS checkpoint, rendered every frame
+        t0 = time.time()
+        gs = root / "gs"
+        params, cams = _gs_model(dev, n_gaussians, res)
+        save_gaussian_ply(gs / "point_cloud" / "iteration_30000" / "point_cloud.ply", params)
+        (gs / "cameras.json").write_text(json.dumps(cams))
+        print(f"setup: 3DGS checkpoint of {n_gaussians} gaussians, {len(cams)} cameras at "
+              f"{res}x{res} in {time.time() - t0:.1f} s", flush=True)
+        transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = gs_stream.BLEND_LAUNCHES = 0
+        gs_out = root / "sim_gs"
+        info = pipeline.run_physics_simulation(ply, tree_cfg, gs_out, n_frames=n_frames,
+                                               debug=True, gaussian_checkpoint=gs,
+                                               render_img=True, device=dev)
+        launches = {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
+                    "gs_blend": gs_stream.BLEND_LAUNCHES}
+        substeps = n_frames * info["substeps_per_frame"]
+        print(f"mpm (GS): {info['n_particles']} gaussians, {n_frames} frames x "
+              f"{info['substeps_per_frame']} substeps, materials {info['active_materials']}, "
+              f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
+              f"{info['median_frame_s']:.3f} s, median render {info['median_render_ms']:.1f} ms "
+              f"(render + PNG + PLY); launches {launches}", flush=True)
+        if launches != {"p2g": substeps, "g2p": substeps, "gs_blend": n_frames}:
+            fail(f"GS launches {launches} != {substeps} substeps, {n_frames} frames")
+        pngs = sorted((gs_out / "frames").glob("*.png"))
+        if [p.name for p in pngs] != [f"{i:05d}.png" for i in range(n_frames)]:
+            fail(f"frames {[p.name for p in pngs]}")
+        for p in pngs:
+            img = np.asarray(Image.open(p))
+            lit = float((img.max(-1) > 16).mean())
+            print(f"  {p.name}: {img.shape}, mean {img.mean():.2f}, lit share {lit:.3f}")
+            if img.shape != (res, res, 3) or lit < 0.02 or img.std() < 5.0:
+                fail(f"{p.name}: blank or wrong-sized frame")
+        plys = sorted((gs_out / "ply_files").glob("frame_*.ply"))
+        if [p.name for p in plys] != [f"frame_{i:05d}.ply" for i in range(n_frames)]:
+            fail(f"gaussian PLYs {[p.name for p in plys]}")
+        for p in plys:
+            g = load_gaussian_ply(p)
+            if len(g["xyz"]) != info["n_particles"] or not all(
+                    bool(torch.isfinite(a).all()) for a in g.values()):
+                fail(f"{p.name}: non-finite or missing gaussians")
+        if not info["final_state_finite"]:
+            fail("non-finite positions after the last GS substep")
         return launches
 
 
@@ -304,17 +440,20 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     kern = phase_kernels(dev)
+    kern["gs_blend"] = phase_blend(dev)
     launches = phase_slice(dev)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pixie_tpu"))
     if leaked:
         fail(f"JAX or the JAX package was imported: {leaked[:5]}")
     rows = []
-    for name, line in (("p2g", 361), ("g2p", 439)):
+    for name, src, replaces in (
+            ("p2g", "transfer.cu", "pixie_tpu/ops/transfer.py:361"),
+            ("g2p", "transfer.cu", "pixie_tpu/ops/transfer.py:439"),
+            ("gs_blend", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:210")):
         err, k_ms, p_ms = kern[name]
-        rows.append({"name": name, "route": "cuda", "source": "pixie_tpu_torch/csrc/transfer.cu",
-                     "replaces": f"pixie_tpu/ops/transfer.py:{line}",
-                     "launches": launches[name], "max_abs_err": err, "ms": k_ms,
-                     "plain_ms": p_ms})
+        rows.append({"name": name, "route": "cuda", "source": f"pixie_tpu_torch/csrc/{src}",
+                     "replaces": replaces, "launches": launches[name], "max_abs_err": err,
+                     "ms": k_ms, "plain_ms": p_ms})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -54,24 +54,56 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if not cached) and load ``csrc/<name>.cu``; raises on failure."""
+def load_libraries(*names: str) -> list[ctypes.CDLL]:
+    """Build (if not cached) and load ``csrc/<name>.cu`` for each name; the
+    missing libraries build at once, one nvcc each.  Raises on failure."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        out = library_path(name)
-        if not out.exists():
+        procs = {}
+        for name in names:
+            if name in _LIBS or library_path(name).exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {name}:\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, out)
-            BUILD_LOG[name] = (proc.stdout + proc.stderr).strip()
-        _LIBS[name] = ctypes.CDLL(str(out))
-        return _LIBS[name]
+                failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n{log}")
+            else:
+                os.replace(tmp, library_path(name))
+                BUILD_LOG[name] = log.strip()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _LIBS:
+                _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return [_LIBS[name] for name in names]
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if not cached) and load ``csrc/<name>.cu``; raises on failure."""
+    return load_libraries(name)[0]
+
+
+def check_tensor(name: str, t, shape: tuple, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this shape, dtype and device."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launcher returned a non-zero cudaError_t."""
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.pixie_error_string(code).decode()} ({code})")

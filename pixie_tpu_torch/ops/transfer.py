@@ -24,6 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
+from pixie_tpu_torch.ops.build import check_tensor, load_library, raise_on_error
 from pixie_tpu_torch.sim.types import MPMConfig, MPMState
 
 P2G_LAUNCHES = 0
@@ -36,8 +37,6 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _lib() -> ctypes.CDLL:
-    from pixie_tpu_torch.ops.build import load_library  # noqa: PLC0415
-
     lib = load_library("transfer")
     if not getattr(lib, "_pixie_typed", False):
         lib.pixie_p2g.argtypes = [_c_void_p] * 8 + [_c_int, _c_int, _c_float, _c_float,
@@ -55,23 +54,6 @@ def _lib() -> ctypes.CDLL:
 def build() -> None:
     """Compile (or load from the build cache) the transfer kernels."""
     _lib()
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(lib, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.pixie_error_string(code).decode()} ({code})")
 
 
 def _spline_weights(x: torch.Tensor, inv_dx: float):
@@ -146,8 +128,8 @@ def p2g(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
     for name, t, shape in (("x", x, (n, 3)), ("v", v, (n, 3)), ("C", C, (n, 3, 3)),
                            ("stress", stress, (n, 3, 3)), ("mass", mass, (n,)),
                            ("vol", vol, (n,))):
-        _check(name, t, shape, f32, dev)
-    _check("active", active, (n,), torch.bool, dev)
+        check_tensor(name, t, shape, f32, dev)
+    check_tensor("active", active, (n,), torch.bool, dev)
     lib = _lib()
     grid = torch.zeros((g, g, g, 4), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -155,7 +137,7 @@ def p2g(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
                          mass.data_ptr(), vol.data_ptr(), active.data_ptr(),
                          grid.data_ptr(), n, g, cfg.dx, cfg.inv_dx, float(dt),
                          cfg.rpic_damping, stream)
-    _raise_on(lib, code, "p2g")
+    raise_on_error(lib, code, "p2g")
     P2G_LAUNCHES += 1
     return grid
 
@@ -216,9 +198,9 @@ def g2p(state: MPMState, grid_v: torch.Tensor, cfg: MPMConfig, dt) -> MPMState:
     n, g, dev, f32 = state.n_particles, cfg.n_grid, state.x.device, torch.float32
     for name, shape in (("x", (n, 3)), ("v", (n, 3)), ("C", (n, 3, 3)), ("F", (n, 3, 3)),
                         ("F_trial", (n, 3, 3)), ("cov", (n, 6))):
-        _check(name, getattr(state, name), shape, f32, dev)
-    _check("selection", state.selection, (n,), torch.int32, dev)
-    _check("grid_v", grid_v, (g, g, g, 3), f32, dev)
+        check_tensor(name, getattr(state, name), shape, f32, dev)
+    check_tensor("selection", state.selection, (n,), torch.int32, dev)
+    check_tensor("grid_v", grid_v, (g, g, g, 3), f32, dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.pixie_g2p(state.x.data_ptr(), state.v.data_ptr(), state.C.data_ptr(),
@@ -226,6 +208,6 @@ def g2p(state: MPMState, grid_v: torch.Tensor, cfg: MPMConfig, dt) -> MPMState:
                          state.cov.data_ptr(), state.selection.data_ptr(),
                          grid_v.data_ptr(), n, g, cfg.inv_dx, float(dt),
                          int(cfg.update_cov_with_F), stream)
-    _raise_on(lib, code, "g2p")
+    raise_on_error(lib, code, "g2p")
     G2P_LAUNCHES += 1
     return state

@@ -110,11 +110,16 @@ def run_physics_simulation(
     save_ply: bool = True,
     debug: bool = False,
     gaussian_checkpoint: str | Path | None = None,
+    render_img: bool = False,
+    compile_video: bool = False,
+    white_bg: bool = False,
     overwrite: bool = False,
     device: str | torch.device = "cuda",
 ) -> dict | None:
-    """MPM rollout of the material PLY (point-cloud mode); returns sim info,
-    or None when ``sim_info.json`` exists and ``overwrite`` is off."""
+    """MPM rollout of the material PLY's vertices, or of the gaussians of
+    ``gaussian_checkpoint`` with the PLY as their material source (rendered
+    per frame with ``render_img``); returns sim info, or None when
+    ``sim_info.json`` exists and ``overwrite`` is off."""
     from pixie_tpu_torch.sim.driver import run_simulation  # noqa: PLC0415
 
     output_dir = Path(output_dir)
@@ -126,7 +131,8 @@ def run_physics_simulation(
     return run_simulation(point_cloud_path=material_ply, config_path=sim_config,
                           output_dir=output_dir, n_frames=n_frames, save_ply=save_ply,
                           debug=debug, gaussian_checkpoint=gaussian_checkpoint,
-                          device=device)
+                          render_img=render_img, compile_video=compile_video,
+                          white_bg=white_bg, device=device)
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
@@ -168,13 +174,21 @@ def main(argv=None, device: str | torch.device = "cuda"):
     else:
         sim_cfg = (Path(cfg.paths.physgaussian_config_dir) / "real_scene"
                    / f"custom_{cfg.obj_id}_config.json")
+    # the GS checkpoint's gaussians are simulated and rendered when one
+    # exists (pipeline.py:351-372); should_use_white_bg (pixie/utils.py:378-382)
     gs_ckpt = Path(paths["gs_output"])
+    has_gs = (gs_ckpt / "point_cloud").is_dir()
+    white_bg = bool(cfg.physics.white_bg)
+    if (cfg.material_mode == "neural"
+            and cfg.obj_class in list(cfg.physics.get("no_white_bg_classes", []))):
+        white_bg = False
     run_physics_simulation(
         material_ply, sim_cfg,
         Path(paths["physgaussian_output"]) / f"sample_{cfg.physics.sample_id}",
         n_frames=cfg.physics.get("n_frames"), save_ply=cfg.physics.save_ply,
-        debug=cfg.physics.debug,
-        gaussian_checkpoint=gs_ckpt if (gs_ckpt / "point_cloud").is_dir() else None,
+        debug=cfg.physics.debug, gaussian_checkpoint=gs_ckpt if has_gs else None,
+        render_img=bool(cfg.physics.get("render_img", True)) and has_gs,
+        compile_video=bool(cfg.physics.get("compile_video", True)), white_bg=white_bg,
         overwrite=bool(cfg.overwrite), device=device)
     logging.info("neural slice complete in %.1fs", time.time() - t0)
 

@@ -1,0 +1,253 @@
+"""Gaussian-splat rasterizer, forward (port of pixie_tpu/recon/rasterizer.py).
+
+``project_gaussians``  EWA projection to screen: means2D, 2D covariance,
+                       depth, rgb, opacity (forward.cu preprocessCUDA).
+``rasterize``          the dense oracle: one global depth sort and a loop
+                       over 256-splat chunks blended against the whole
+                       image (O(N·H·W); tests only).
+``rasterize_tiled``    the tile pipeline: depth sort, fixed-fanout
+                       (tile, depth-rank) key duplication over each
+                       splat's 3-sigma tile bbox, one key sort, per-tile
+                       ranges, then the tile blend of ``ops/gs_stream.py``
+                       (the CUDA kernel on CUDA tensors).
+
+The binning is plain PyTorch, as XLA ops surround the Pallas kernel in the
+JAX package.  Both truncations of the JAX tiled path are mirrored: a splat
+reaches at most ``max_tiles_side``² tiles from its clamped bbox start, and
+a tile blends its front-most ``tile_cap`` splats.  The JAX stream layout
+(its ``stream_cap`` rows of 128-aligned tile chunks) is TPU layout and is
+not built: the index list is allocated exactly, so no tile renders empty
+for lack of stream rows (``jax_stream_overflows`` says when JAX would).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from pixie_tpu_torch.ops import gs_stream
+from pixie_tpu_torch.recon import gaussians as G
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    height: int
+    width: int
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+
+
+_PACK6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def congruence6(r):
+    """(6,6) matrix T such that packed(R C R^T) = packed(C) @ T.T for any
+    symmetric C packed upper-triangular [c00,c01,c02,c11,c12,c22]:
+    T[p,q] = R_ai R_bj + R_aj R_bi (i<j) or R_ai R_bi (i==j), p=(a,b),
+    q=(i,j).  Takes a 3x3 tensor or numpy array and returns the same kind."""
+    rows = []
+    for a, b in _PACK6:
+        row = []
+        for i, j in _PACK6:
+            v = r[a, i] * r[b, j]
+            if i != j:
+                v = v + r[a, j] * r[b, i]
+            row.append(v)
+        rows.append(row)
+    if isinstance(r, torch.Tensor):
+        return torch.stack([torch.stack(row) for row in rows])
+    import numpy as np  # noqa: PLC0415
+
+    return np.array(rows, dtype=np.asarray(r).dtype)
+
+
+def project_gaussians(params, viewmat, cam: Camera, scaling_modifier=1.0):
+    """World gaussians -> (means2d (N,2), cov2d (N,3), depth (N,), rgb (N,3),
+    opacity (N,)), EWA splatting as in preprocessCUDA (forward.cu:74-155):
+    cov2D = J W Sigma W^T J^T + 0.3 on the diagonal.
+
+    Precomputed inputs are honored when present in ``params``:
+    ``cov6_precomp`` (N,6) packed world covariance, ``cov3d_precomp``
+    (N,3,3), ``colors_precomp`` (N,3) and ``opacity_precomp`` (N,) or (N,1).
+    Gaussians at depth <= 0.01 are culled by zeroing their opacity."""
+    xyz = params["xyz"]
+    r = viewmat[:3, :3]
+    t = viewmat[:3, 3]
+    p_cam = xyz @ r.T + t  # camera looks down +z
+    depth = p_cam[:, 2]
+    x, y, z = p_cam[:, 0], p_cam[:, 1], torch.clamp(p_cam[:, 2], min=1e-4)
+    means2d = torch.stack([cam.fx * x / z + cam.cx, cam.fy * y / z + cam.cy], -1)
+
+    if "cov6_precomp" in params:
+        cov6 = params["cov6_precomp"] * (scaling_modifier ** 2)
+    elif "cov3d_precomp" in params:
+        m = params["cov3d_precomp"] * (scaling_modifier ** 2)
+        cov6 = torch.stack([m[:, 0, 0], m[:, 0, 1], m[:, 0, 2],
+                            m[:, 1, 1], m[:, 1, 2], m[:, 2, 2]], -1)
+    else:
+        cov6 = G.covariance_upper(params, scaling_modifier)
+    cov_cam6 = cov6 @ congruence6(r).T
+    # Jacobian of the perspective projection (forward.cu:91-103)
+    j00 = cam.fx / z
+    j02 = -cam.fx * x / (z * z)
+    j11 = cam.fy / z
+    j12 = -cam.fy * y / (z * z)
+    a, b, c = cov_cam6[:, 0], cov_cam6[:, 1], cov_cam6[:, 2]
+    d, e, f = cov_cam6[:, 3], cov_cam6[:, 4], cov_cam6[:, 5]
+    c00 = j00 * (j00 * a + j02 * c) + j02 * (j00 * c + j02 * f) + 0.3
+    c01 = j00 * (j11 * b + j12 * c) + j02 * (j11 * e + j12 * f)
+    c11 = j11 * (j11 * d + j12 * e) + j12 * (j11 * e + j12 * f) + 0.3
+
+    if "colors_precomp" in params:
+        rgb = params["colors_precomp"]
+    else:
+        cam_pos = -r.T @ t
+        dirs = xyz - cam_pos
+        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
+        shs = G.get_shs(params)
+        rgb = torch.clamp(G.eval_sh(shs, dirs, G.sh_degree_of(shs)), min=0.0)
+
+    if "opacity_precomp" in params:
+        opacity = params["opacity_precomp"].reshape(-1)
+    else:
+        opacity = G.get_opacity(params)[:, 0]
+    opacity = torch.where(depth > 0.01, opacity, 0.0)
+    return means2d, torch.stack([c00, c01, c11], -1), depth, rgb, opacity
+
+
+def _conic(cov2d):
+    """Inverse 2D covariance with det clamped to 1e-8 (forward.cu:222-230);
+    returns (conic (N,3), det (N,))."""
+    det = torch.clamp(cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2, min=1e-8)
+    conic = torch.stack([cov2d[:, 2] / det, -cov2d[:, 1] / det, cov2d[:, 0] / det], -1)
+    return conic, det
+
+
+def rasterize(params, viewmat, cam: Camera, bg_color=1.0, scaling_modifier=1.0,
+              chunk: int = 256):
+    """Dense oracle: (image (H,W,3), alpha (H,W)) by a global depth sort and
+    chunked blending of every splat against every pixel."""
+    means2d, cov2d, depth, rgb, opacity = project_gaussians(
+        params, viewmat, cam, scaling_modifier)
+    dev = means2d.device
+    order = torch.sort(depth, stable=True).indices
+    means2d, cov2d, rgb, opacity = means2d[order], cov2d[order], rgb[order], opacity[order]
+    conic, _ = _conic(cov2d)
+    px = torch.arange(cam.width, dtype=torch.float32, device=dev) + 0.5
+    py = torch.arange(cam.height, dtype=torch.float32, device=dev) + 0.5
+    grid_y, grid_x = torch.meshgrid(py, px, indexing="ij")      # (H, W)
+    color = torch.zeros((cam.height, cam.width, 3), dtype=torch.float32, device=dev)
+    trans = torch.ones((cam.height, cam.width), dtype=torch.float32, device=dev)
+    for s in range(0, means2d.shape[0], chunk):
+        m, cn, col, o = (v[s:s + chunk] for v in (means2d, conic, rgb, opacity))
+        dx = grid_x[..., None] - m[:, 0]                        # (H, W, C)
+        dy = grid_y[..., None] - m[:, 1]
+        power = -0.5 * (cn[:, 0] * dx * dx + cn[:, 2] * dy * dy) - cn[:, 1] * dx * dy
+        alpha = torch.clamp(o * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+        alpha = torch.where(alpha < 1.0 / 255.0, 0.0, alpha)
+        one_minus = 1.0 - alpha
+        cum = torch.cumprod(one_minus, -1)
+        w = alpha * (cum / one_minus) * trans[..., None]
+        color = color + torch.stack([torch.sum(w * col[:, e], -1) for e in range(3)], -1)
+        trans = trans * cum[..., -1]
+    return color + bg_color * trans[..., None], 1.0 - trans
+
+
+@dataclasses.dataclass
+class TileBins:
+    """Per-tile splat lists of one frame (the blend kernel's inputs)."""
+
+    feat: torch.Tensor     # (N, 9) [mx, my, conic3, rgb3, opacity]
+    idx: torch.Tensor      # (M,) int32 gaussian index, sorted by (tile, depth)
+    starts: torch.Tensor   # (T,) int32 first entry of each tile
+    counts: torch.Tensor   # (T,) int32 entries blended, min(raw, tile_cap)
+    raw: torch.Tensor      # (T,) int64 entries before the tile_cap cut
+    tx_n: int
+
+
+def bin_tiles(params, viewmat, cam: Camera, scaling_modifier=1.0, tile: int = 16,
+              tile_cap: int = 512, max_tiles_side: int = 6) -> TileBins:
+    """Projection and tile binning of ``rasterize_tiled`` (rasterizer.py:363-429)."""
+    means2d, cov2d, depth, rgb, opacity = project_gaussians(
+        params, viewmat, cam, scaling_modifier)
+    dev = means2d.device
+    n = means2d.shape[0]
+    ty_n, tx_n = cam.height // tile, cam.width // tile
+    n_tiles = ty_n * tx_n
+    # stable depth order: ties break by index, as lax.sort's
+    perm = torch.sort(depth, stable=True).indices     # blend position -> gaussian
+    rank = torch.empty_like(perm)
+    rank[perm] = torch.arange(n, device=dev)          # gaussian -> blend position
+
+    conic, det = _conic(cov2d)
+    # 3-sigma pixel radius (forward.cu:205-209)
+    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    radius = torch.ceil(3.0 * torch.sqrt(lam))
+    tx0 = torch.floor((means2d[:, 0] - radius) / tile).to(torch.int64)
+    ty0 = torch.floor((means2d[:, 1] - radius) / tile).to(torch.int64)
+    tx1 = torch.floor((means2d[:, 0] + radius) / tile).to(torch.int64)
+    ty1 = torch.floor((means2d[:, 1] + radius) / tile).to(torch.int64)
+    tx0c, tx1c = torch.clamp(tx0, 0, tx_n - 1), torch.clamp(tx1, 0, tx_n - 1)
+    ty0c, ty1c = torch.clamp(ty0, 0, ty_n - 1), torch.clamp(ty1, 0, ty_n - 1)
+    on_screen = ((tx1 >= 0) & (tx0 <= tx_n - 1) & (ty1 >= 0) & (ty0 <= ty_n - 1)
+                 & (opacity > 0.0))
+
+    # fixed fanout over max_tiles_side^2 slots from the clamped bbox start;
+    # key = tile_id * N + depth rank (int64 where JAX has int32), invalid
+    # slots sort last under the sentinel n_tiles * N
+    ks = max_tiles_side
+    di = torch.arange(ks, device=dev)
+    gx = tx0c[None, :] + di.repeat_interleave(ks)[:, None]   # (ks^2, N)
+    gy = ty0c[None, :] + di.repeat(ks)[:, None]
+    valid = (gx <= tx1c[None, :]) & (gy <= ty1c[None, :]) & on_screen[None, :]
+    key = torch.where(valid, (gy * tx_n + gx) * n + rank[None, :], n_tiles * n)
+    skey = torch.sort(key.reshape(-1)).values
+    bounds = torch.arange(n_tiles + 1, device=dev) * n
+    starts = torch.searchsorted(skey, bounds[:-1], side="left")
+    ends = torch.searchsorted(skey, bounds[1:], side="left")
+    raw = ends - starts
+    n_valid = int(valid.sum())
+    idx = perm[skey[:n_valid] % max(n, 1)].to(torch.int32)
+    feat = torch.cat([means2d, conic, rgb, opacity[:, None]], -1).contiguous()
+    return TileBins(feat=feat, idx=idx, starts=starts.to(torch.int32),
+                    counts=torch.clamp(raw, max=tile_cap).to(torch.int32), raw=raw,
+                    tx_n=tx_n)
+
+
+def jax_stream_overflows(bins: TileBins) -> bool:
+    """Whether the JAX stream path (rasterizer.py:439-454) would render some
+    tiles empty at this scene: its default stream holds
+    (ceil(4N/128) + T) * 128 rows and each tile takes its count rounded up
+    to whole 128-row chunks."""
+    ch = gs_stream.CH
+    n, n_tiles = bins.feat.shape[0], bins.starts.shape[0]
+    n_blocks = -(-4 * n // ch) + n_tiles
+    need = int(((bins.counts.to(torch.int64) + ch - 1) // ch).sum())
+    return need > n_blocks
+
+
+def rasterize_tiled(params, viewmat, cam: Camera, bg_color=1.0, scaling_modifier=1.0,
+                    tile: int = 16, tile_cap: int = 512, max_tiles_side: int = 6):
+    """Tile-culled rasterization, forward only: (image (H,W,3), alpha (H,W)).
+
+    H and W must be multiples of ``tile`` (16).  This is the JAX function's
+    stream branch (rasterizer.py:433-488); the blend runs in
+    ``ops/gs_stream.blend`` (the CUDA kernel on CUDA tensors).  The dense
+    slot-table branch (kernel B5 or the XLA scan) is not ported."""
+    if tile != 16:
+        raise NotImplementedError(f"tile={tile}: the blend kernel takes 16x16 tiles")
+    if cam.height % tile or cam.width % tile:
+        raise ValueError(f"image {cam.height}x{cam.width} is not a multiple of {tile}")
+    if tile_cap % gs_stream.CH or not 1 <= tile_cap // gs_stream.CH <= 9:
+        raise NotImplementedError(
+            "only the stream branch of rasterize_tiled is ported (tile_cap a "
+            "multiple of 128 up to 1152); the slot-table branch (B5) is "
+            "ROADMAP.md 'Next slices' (c)")
+    bins = bin_tiles(params, viewmat, cam, scaling_modifier, tile, tile_cap, max_tiles_side)
+    img, trans = gs_stream.blend(bins.feat, bins.idx, bins.starts, bins.counts,
+                                 bins.tx_n, float(bg_color))
+    return img, 1.0 - trans

@@ -132,7 +132,9 @@ def make_state(
 ) -> MPMState:
     """Initial state (load_initial_data_from_torch semantics,
     mpm_solver_warp.py:234-281): v=0, F=F_trial=I, mass = density * vol."""
-    x = torch.as_tensor(np.asarray(x, np.float32), device=device).reshape(-1, 3)
+    # a copy: G2P advects x in place, which must not write through to the
+    # caller's array
+    x = torch.tensor(np.asarray(x, np.float32), device=device).reshape(-1, 3)
     n = x.shape[0]
     f32, i32 = torch.float32, torch.int32
     eye = torch.eye(3, dtype=f32, device=device).expand(n, 3, 3)

@@ -5,8 +5,10 @@ the card (skipped without a GPU: a CUDA kernel has no CPU mode).
 
 Tolerances: P2G sums float atomics in run-dependent order, so grids agree
 to atol 1e-5 / rtol 1e-4 (momenta up to ~1e-1); G2P sums the 27 nodes in a
-fixed order but contracts multiply-adds, atol 1e-5 / rtol 1e-4.  This file
-imports no JAX package module.
+fixed order but contracts multiply-adds, atol 1e-5 / rtol 1e-4.  The tile
+blend's sequential transmittance product against the plain version's
+log-domain chunked product agrees to atol 1e-4 on colour and T (values in
+[0, 1], up to 512 terms).  This file imports no JAX package module.
 """
 
 import numpy as np
@@ -15,7 +17,8 @@ import torch
 
 from torch_parity import cuda_device, random_particles, to_np  # noqa: F401  (fixture)
 
-from pixie_tpu_torch.ops import transfer
+from pixie_tpu_torch.ops import gs_stream, transfer
+from pixie_tpu_torch.recon import rasterizer as R
 from pixie_tpu_torch.sim.types import MPMConfig, finalize_mu_lam, make_state
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +85,93 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         transfer.p2g(st.x, st.v.cpu(), st.C, st.stress, st.mass, st.vol, active, cfg, DT)
     with pytest.raises(ValueError, match="shape"):
         transfer.g2p(st, torch.zeros((8, 8, 8, 3), device=cuda_device), cfg, DT)
+
+
+def _splat_bins(n=3000, seed=0, tile_cap=512, res=128):
+    """A seeded splat scene binned on the CPU: random gaussians in a ball,
+    seen from z = -2.2 (tile_cap 128 binds on the centre tiles)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    params = {
+        "xyz": rng.normal(0.0, 0.25, (n, 3)),
+        "f_dc": rng.normal(0.0, 1.0, (n, 1, 3)),
+        "f_rest": rng.normal(0.0, 0.1, (n, 15, 3)),
+        "scaling": rng.uniform(np.log(0.01), np.log(0.05), (n, 3)),
+        "rotation": q / np.linalg.norm(q, axis=1, keepdims=True),
+        "opacity": rng.normal(1.0, 1.5, (n, 1)),
+    }
+    params = {k: torch.as_tensor(v.astype(np.float32)) for k, v in params.items()}
+    vm = torch.eye(4)
+    vm[2, 3] = 2.2
+    cam = R.Camera(res, res, 1.2 * res, 1.2 * res, res / 2, res / 2)
+    return R.bin_tiles(params, vm, cam, tile_cap=tile_cap)
+
+
+def _blend_both(bins, dev, bg=0.3):
+    args = (bins.feat, bins.idx, bins.starts, bins.counts)
+    want = gs_stream.blend_plain(*args, bins.tx_n, bg)
+    before = gs_stream.BLEND_LAUNCHES
+    got = gs_stream.blend(*(t.to(dev) for t in args), bins.tx_n, bg)
+    assert gs_stream.BLEND_LAUNCHES == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("tile_cap", [512, 128])
+def test_blend_kernel_matches_plain(cuda_device, tile_cap):
+    bins = _splat_bins(tile_cap=tile_cap)
+    if tile_cap == 128:
+        assert int((bins.raw > tile_cap).sum()) > 0  # the cap binds
+    (img, trans), (want_img, want_trans) = _blend_both(bins, cuda_device)
+    np.testing.assert_allclose(to_np(img), to_np(want_img), atol=1e-4)
+    np.testing.assert_allclose(to_np(trans), to_np(want_trans), atol=1e-4)
+    assert float(want_trans.min()) < 0.1  # opaque somewhere: the blend did work
+
+
+def test_blend_kernel_empty_and_transparent_tiles(cuda_device):
+    feat = torch.tensor([[8.5, 8.5, 1.0, 0.0, 1.0, 0.2, 0.4, 0.6, 1.0],     # opaque
+                         [40.5, 8.5, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 0.003]])  # < 1/255
+    idx = torch.tensor([0, 1], dtype=torch.int32)
+    starts = torch.tensor([0, 1, 2], dtype=torch.int32)
+    counts = torch.tensor([1, 1, 0], dtype=torch.int32)
+    bins = R.TileBins(feat=feat, idx=idx, starts=starts, counts=counts, raw=counts, tx_n=3)
+    (img, trans), (want_img, want_trans) = _blend_both(bins, cuda_device, bg=0.5)
+    np.testing.assert_allclose(to_np(img), to_np(want_img), atol=1e-6)
+    np.testing.assert_allclose(to_np(trans), to_np(want_trans), atol=1e-6)
+    assert float(trans[:, 16:].min()) == 1.0
+    np.testing.assert_array_equal(to_np(img[:, 16:]), 0.5)
+
+
+def test_rasterize_tiled_on_cuda_launches_the_kernel(cuda_device):
+    rng = np.random.default_rng(3)
+    n = 500
+    params = {"xyz": rng.uniform(-0.5, 0.5, (n, 3)), "cov6_precomp": np.tile(
+        [4e-4, 1e-4, 0.0, 3e-4, 0.0, 2e-4], (n, 1)), "colors_precomp": rng.uniform(0, 1, (n, 3)),
+        "opacity_precomp": rng.uniform(0.1, 1.0, (n,))}
+    params = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in params.items()}
+    vm = torch.eye(4)
+    vm[2, 3] = 2.0
+    cam = R.Camera(96, 80, 90.0, 90.0, 40.0, 48.0)
+    want = R.rasterize_tiled(params, vm, cam, bg_color=1.0)
+    before = gs_stream.BLEND_LAUNCHES
+    got = R.rasterize_tiled({k: v.to(cuda_device) for k, v in params.items()},
+                            vm.to(cuda_device), cam, bg_color=1.0)
+    assert gs_stream.BLEND_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(to_np(g), to_np(w), atol=1e-4)
+
+
+def test_blend_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    bins = _splat_bins(n=200)
+    args = [t.to(cuda_device) for t in (bins.feat, bins.idx, bins.starts, bins.counts)]
+    with pytest.raises(TypeError):
+        gs_stream.blend(args[0].double(), *args[1:], bins.tx_n)
+    with pytest.raises(TypeError):
+        gs_stream.blend(args[0], args[1].long(), *args[2:], bins.tx_n)
+    with pytest.raises(ValueError, match="contiguous"):
+        gs_stream.blend(args[0].t().contiguous().t(), *args[1:], bins.tx_n)
+    with pytest.raises(ValueError, match="expected cuda"):
+        gs_stream.blend(args[0], args[1].cpu(), *args[2:], bins.tx_n)
+    with pytest.raises(ValueError, match="shape"):
+        gs_stream.blend(args[0], args[1], args[2], args[3][:-1], bins.tx_n)
+    with pytest.raises(ValueError, match="tx_n"):
+        gs_stream.blend(*args, 7)

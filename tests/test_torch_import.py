@@ -31,7 +31,9 @@ def _import_in_fresh_interpreter(modules):
 
 def test_module_list_covers_the_slice():
     for m in ("pixie_tpu_torch.ops.transfer", "pixie_tpu_torch.sim.driver",
-              "pixie_tpu_torch.models.unet3d", "pixie_tpu_torch.pipeline"):
+              "pixie_tpu_torch.models.unet3d", "pixie_tpu_torch.pipeline",
+              "pixie_tpu_torch.ops.gs_stream", "pixie_tpu_torch.recon.rasterizer",
+              "pixie_tpu_torch.sim.render_sim"):
         assert m in MODULES
 
 
@@ -47,6 +49,7 @@ def test_no_jax_from_entry_point(entry):
 def test_kernel_build_is_lazy():
     """Importing the kernel module builds nothing and needs no nvcc."""
     code = ("import pixie_tpu_torch.ops.transfer as t, pixie_tpu_torch.ops.build as b\n"
+            "import pixie_tpu_torch.ops.gs_stream, pixie_tpu_torch.recon.rasterizer\n"
             "assert not b._LIBS\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

@@ -1,0 +1,553 @@
+"""The GS-rendered rollout, port vs JAX package, on the CPU: gaussian model
+and PLY I/O, projection, the dense and tiled rasterizers (the port's plain
+blend against JAX's ``blend_stream`` in interpret mode), ``SimRenderer``
+and the whole GS-checkpoint path of ``run_simulation``.
+
+Tolerances (float32 throughout):
+  * covariance, SH, projection: atol 1e-5 / rtol 1e-5 (same formulas,
+    rounding of different matmul orders);
+  * PLY round trips: identical;
+  * images: atol 2e-5 (the blend's exp/log1p in two libraries, over up to
+    512 splats a pixel);
+  * uint8 frames: at most 1 LSB, on at most 0.1 % of pixels (rounding at
+    the .5 boundaries of img * 255 + 0.5);
+  * world pos/cov atol 1e-5; frame PLY positions atol 2e-5 after 150
+    substeps.
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import to_np
+
+jnp = pytest.importorskip("jax.numpy")
+
+REPO = Path(__file__).resolve().parent.parent
+TIGHT = dict(atol=1e-5, rtol=1e-5)
+
+
+def _gauss_params(n=200, seed=0, degree=3):
+    """Random gaussians as numpy: unit-ish quats, log-scales, logits, SH."""
+    rng = np.random.default_rng(seed)
+    k = (degree + 1) ** 2
+    return {
+        "xyz": rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32),
+        "f_dc": rng.normal(0, 0.5, (n, 1, 3)).astype(np.float32),
+        "f_rest": rng.normal(0, 0.2, (n, k - 1, 3)).astype(np.float32),
+        "scaling": rng.uniform(np.log(0.01), np.log(0.08), (n, 3)).astype(np.float32),
+        "rotation": rng.normal(size=(n, 4)).astype(np.float32),
+        "opacity": rng.uniform(-2.0, 3.0, (n, 1)).astype(np.float32),
+    }
+
+
+def _both(p):
+    return ({k: jnp.asarray(v) for k, v in p.items()},
+            {k: torch.as_tensor(np.array(v)) for k, v in p.items()})
+
+
+def _viewmat():
+    # a tilted camera 2.2 units from the origin, looking at it
+    from pixie_tpu_torch.sim.camera import look_at_viewmat
+
+    return look_at_viewmat([0.9, -1.7, 1.1], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0])
+
+
+# -- gaussians ----------------------------------------------------------------
+
+def test_covariance_and_activations_match_jax():
+    from pixie_tpu.recon import gaussians as JG
+    from pixie_tpu_torch.recon import gaussians as TG
+
+    jp, tp = _both(_gauss_params())
+    np.testing.assert_allclose(to_np(TG.covariance_upper(tp, 1.3)),
+                               np.asarray(JG.covariance_upper(jp, 1.3)), **TIGHT)
+    for fn in ("get_scaling", "get_opacity", "get_rotation", "get_shs"):
+        np.testing.assert_allclose(to_np(getattr(TG, fn)(tp)),
+                                   np.asarray(getattr(JG, fn)(jp)), err_msg=fn, **TIGHT)
+    q = TG.get_rotation(tp)
+    np.testing.assert_allclose(to_np(TG.quat_to_rotmat(q)),
+                               np.asarray(JG.quat_to_rotmat(jnp.asarray(to_np(q)))), **TIGHT)
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_eval_sh_matches_jax(degree):
+    from pixie_tpu.recon import gaussians as JG
+    from pixie_tpu_torch.recon import gaussians as TG
+
+    rng = np.random.default_rng(degree)
+    shs = rng.normal(size=(257, (degree + 1) ** 2, 3)).astype(np.float32)
+    d = rng.normal(size=(257, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    np.testing.assert_allclose(
+        to_np(TG.eval_sh(torch.as_tensor(shs), torch.as_tensor(d), degree)),
+        np.asarray(JG.eval_sh(jnp.asarray(shs), jnp.asarray(d), degree)), **TIGHT)
+
+
+def test_create_from_points_matches_jax():
+    from pixie_tpu.recon import gaussians as JG
+    from pixie_tpu_torch.recon import gaussians as TG
+
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-0.3, 0.3, (150, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, (150, 3)).astype(np.float32)
+    want = JG.create_from_points(pts, colors=cols, initial_opacity=0.9)
+    got = TG.create_from_points(pts, colors=cols, initial_opacity=0.9)
+    for k in want:
+        np.testing.assert_allclose(to_np(got[k]), np.asarray(want[k]), err_msg=k, **TIGHT)
+
+
+def test_gaussian_ply_round_trips(tmp_path):
+    """Port save -> port load, JAX save -> port load and port save -> JAX
+    load all give back the same arrays (Inria layout, f_rest channel-major)."""
+    from pixie_tpu.recon import gaussians as JG
+    from pixie_tpu_torch.recon import gaussians as TG
+
+    p = _gauss_params(n=37, seed=5)
+    jp, tp = _both(p)
+    TG.save_gaussian_ply(tmp_path / "port.ply", tp)
+    JG.save_gaussian_ply(tmp_path / "jax.ply", jp)
+    assert (tmp_path / "port.ply").read_bytes() == (tmp_path / "jax.ply").read_bytes()
+    for loaded in (TG.load_gaussian_ply(tmp_path / "port.ply"),
+                   TG.load_gaussian_ply(tmp_path / "jax.ply"),
+                   JG.load_gaussian_ply(tmp_path / "port.ply")):
+        for k, v in p.items():
+            np.testing.assert_array_equal(to_np(loaded[k]), v, err_msg=k)
+
+
+# -- projection and rasterizers -------------------------------------------------
+
+@pytest.mark.parametrize("precomp", ["none", "cov6_colors_opacity", "cov3d"])
+def test_project_gaussians_matches_jax(precomp):
+    from pixie_tpu.recon import gaussians as JG
+    from pixie_tpu.recon import rasterizer as JR
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    p = _gauss_params(n=300, seed=1)
+    # behind the camera: culled by opacity, z clamped to 1e-4
+    p["xyz"][:5] = 1.5 * np.array([0.9, -1.7, 1.1]) + p["xyz"][:5] * 0.5
+    jp, _ = _both(p)
+    if precomp == "cov6_colors_opacity":
+        rng = np.random.default_rng(2)
+        p = {"xyz": p["xyz"], "cov6_precomp": np.asarray(JG.covariance_upper(jp)),
+             "colors_precomp": rng.uniform(0, 1, (300, 3)).astype(np.float32),
+             "opacity_precomp": rng.uniform(0, 1, (300,)).astype(np.float32)}
+    elif precomp == "cov3d":
+        p["cov3d_precomp"] = np.asarray(JG.get_covariance(jp))
+    jp, tp = _both(p)
+    vm = _viewmat()
+    cam = (1.0, 96, 80, 70.0, 75.0, 40.0, 47.0)
+    want = JR.project_gaussians(jp, jnp.asarray(vm), JR.Camera(*cam[1:]), cam[0])
+    got = TR.project_gaussians(tp, torch.as_tensor(vm), TR.Camera(*cam[1:]), cam[0])
+    # rows 5: only; behind the camera, x / 1e-4 amplifies the rounding of x
+    for name, g, w in zip(("means2d", "cov2d", "depth", "rgb", "opacity"), got, want):
+        np.testing.assert_allclose(to_np(g)[5:], np.asarray(w)[5:], err_msg=name, **TIGHT)
+    assert float(to_np(got[2])[:5].max()) < 0.0
+    assert float(to_np(got[4])[:5].max()) == 0.0 == float(np.asarray(want[4])[:5].max())
+
+
+def _raster_scene(n=300, seed=0, scale=0.03):
+    """tests/test_gaussians.py's tiled-rasterizer scene (64x64, camera at z=-2)."""
+    rng = np.random.default_rng(seed)
+    p = {"xyz": rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)}
+    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    p["f_dc"] = ((cols - 0.5) / 0.28209479177387814)[:, None, :].astype(np.float32)
+    p["f_rest"] = np.zeros((n, 15, 3), np.float32)
+    p["scaling"] = np.full((n, 3), np.log(scale), np.float32)
+    p["rotation"] = np.tile(np.array([1.0, 0, 0, 0], np.float32), (n, 1))
+    p["opacity"] = rng.uniform(-1.0, 2.0, (n, 1)).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 2.0
+    return p, vm
+
+
+@pytest.mark.parametrize("case", ["default", "tile_cap_binds", "max_tiles_side_binds"])
+def test_rasterize_tiled_matches_jax(case):
+    """Port tiled rasterizer (plain blend) vs JAX's (blend_stream, interpret
+    mode), atol 2e-5; the two truncation cases must actually bind."""
+    from pixie_tpu.recon import rasterizer as JR
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    n, scale, kw = {"default": (300, 0.03, dict(tile_cap=512, max_tiles_side=6)),
+                    "tile_cap_binds": (600, 0.03, dict(tile_cap=128, max_tiles_side=6)),
+                    "max_tiles_side_binds": (300, 0.12, dict(tile_cap=512, max_tiles_side=2)),
+                    }[case]
+    p, vm = _raster_scene(n=n, scale=scale)
+    jp, tp = _both(p)
+    cam = (64, 64, 64.0, 64.0, 32.0, 32.0)
+    want_img, want_a = JR.rasterize_tiled(jp, jnp.asarray(vm), JR.Camera(*cam), bg_color=0.25,
+                                          **kw)
+    got_img, got_a = TR.rasterize_tiled(tp, torch.as_tensor(vm), TR.Camera(*cam),
+                                        bg_color=0.25, **kw)
+    np.testing.assert_allclose(to_np(got_img), np.asarray(want_img), atol=2e-5)
+    np.testing.assert_allclose(to_np(got_a), np.asarray(want_a), atol=2e-5)
+
+    bins = TR.bin_tiles(tp, torch.as_tensor(vm), TR.Camera(*cam), **kw)
+    assert not TR.jax_stream_overflows(bins)  # JAX renders every tile here
+    dense, _ = TR.rasterize(tp, torch.as_tensor(vm), TR.Camera(*cam), bg_color=0.25)
+    truncated = float((to_np(got_img) - to_np(dense)).__abs__().max())
+    if case == "tile_cap_binds":
+        assert int((bins.raw > kw["tile_cap"]).sum()) > 0 and truncated > 1e-3
+    elif case == "max_tiles_side_binds":
+        assert truncated > 1e-3 and int(bins.raw.max()) <= kw["tile_cap"]
+    else:
+        assert truncated < 2e-5
+
+
+def test_rasterize_dense_matches_jax():
+    from pixie_tpu.recon import rasterizer as JR
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    p, vm = _raster_scene(n=200, seed=3)
+    jp, tp = _both(p)
+    cam = (48, 64, 60.0, 60.0, 32.0, 24.0)
+    want = JR.rasterize(jp, jnp.asarray(vm), JR.Camera(*cam), bg_color=1.0)
+    got = TR.rasterize(tp, torch.as_tensor(vm), TR.Camera(*cam), bg_color=1.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(to_np(g), np.asarray(w), atol=2e-5)
+
+
+def test_blend_plain_empty_and_transparent_tiles():
+    """Tiles with no entries, or only entries below alpha 1/255, keep T = 1
+    and show the background; a single opaque splat at a pixel centre gives
+    alpha 0.99 there."""
+    from pixie_tpu_torch.ops import gs_stream
+
+    feat = torch.tensor([[8.5, 8.5, 1.0, 0.0, 1.0, 0.2, 0.4, 0.6, 1.0],    # opaque
+                         [40.5, 8.5, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 0.003]])  # < 1/255
+    idx = torch.tensor([0, 1], dtype=torch.int32)
+    starts = torch.tensor([0, 1, 2], dtype=torch.int32)
+    counts = torch.tensor([1, 1, 0], dtype=torch.int32)
+    img, trans = gs_stream.blend_plain(feat, idx, starts, counts, tx_n=3, bg=0.5)
+    assert img.shape == (16, 48, 3) and trans.shape == (16, 48)
+    np.testing.assert_allclose(to_np(trans[8, 8]), 0.01, rtol=1e-5)  # exp(log1p(-0.99))
+    np.testing.assert_allclose(to_np(img[8, 8]), 0.99 * np.array([0.2, 0.4, 0.6]) + 0.005,
+                               rtol=1e-5)
+    assert float(trans[:, 16:].min()) == 1.0
+    np.testing.assert_array_equal(to_np(img[:, 16:]), 0.5)
+
+
+def test_rasterize_tiled_raises_off_the_stream_branch():
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    p, vm = _raster_scene(n=10)
+    tp = {k: torch.as_tensor(v) for k, v in p.items()}
+    cam = TR.Camera(32, 32, 32.0, 32.0, 16.0, 16.0)
+    for kw in (dict(tile_cap=100), dict(tile_cap=1280), dict(tile=8)):
+        with pytest.raises(NotImplementedError):
+            TR.rasterize_tiled(tp, torch.as_tensor(vm), cam, **kw)
+
+
+# -- render_sim and the camera ---------------------------------------------------
+
+def _gs_scene(root: Path):
+    """tests/test_render_sim.py's GS scene (300 gaussians of a jelly block),
+    with a cameras.json at 96x88 (not a multiple of 16: pad and crop) so the
+    frames stay small; the config's default_camera_index 1 selects it."""
+    from pixie_tpu.recon import gaussians as JG
+    from pixie_tpu.utils.io import make_material_vertex, write_ply
+    from pixie_tpu_torch.sim.camera import look_at_viewmat
+
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(-0.2, 0.2, (300, 3)).astype(np.float32)
+    params = JG.create_from_points(pts, colors=rng.uniform(0.2, 0.9, (300, 3)).astype(
+        np.float32), initial_opacity=0.9)
+    params["f_rest"] = jnp.asarray(rng.normal(0, 0.1, (300, 15, 3)).astype(np.float32))
+    ckpt = root / "gs" / "point_cloud" / "iteration_50"
+    ckpt.mkdir(parents=True)
+    JG.save_gaussian_ply(ckpt / "point_cloud.ply", params)
+    cams = []
+    for i, eye in enumerate(([1.2, 0.3, 0.4], [0.7, -0.9, 0.5])):
+        vm = look_at_viewmat(eye, [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]).astype(np.float64)
+        c2w = np.linalg.inv(vm)
+        cams.append({"id": i, "width": 96, "height": 88, "fx": 110.0, "fy": 105.0,
+                     "position": c2w[:3, 3].tolist(), "rotation": c2w[:3, :3].tolist()})
+    (root / "gs" / "cameras.json").write_text(json.dumps(cams))
+    write_ply(root / "mapped_preds.ply", make_material_vertex(
+        coords=pts, density=np.full(300, 400.0, np.float32),
+        E=np.full(300, 2e5, np.float32), nu=np.full(300, 0.3, np.float32),
+        material_id=np.zeros(300, np.int64)))
+    cfg = {"material": "jelly", "n_grid": 24, "grid_lim": 2.0, "substep_dt": 1e-4,
+           "frame_dt": 5e-3, "frame_num": 3, "g": 9.8,
+           "mpm_space_viewpoint_center": [1.0, 1.0, 1.0],
+           "mpm_space_vertical_upward_axis": [0, 0, 1], "default_camera_index": 1,
+           "init_azimuthm": 30.0, "init_elevation": 20.0, "init_radius": 1.5}
+    (root / "sim.json").write_text(json.dumps(cfg))
+    return root
+
+
+def _assert_frames_close(got: np.ndarray, want: np.ndarray):
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
+
+
+@pytest.mark.parametrize("camera_index", [1, -1])
+def test_sim_camera_sequence_matches_jax(tmp_path, camera_index):
+    from pixie_tpu.sim import camera as JC
+    from pixie_tpu_torch.sim import camera as TC
+
+    root = _gs_scene(tmp_path)
+    cfg = json.loads((root / "sim.json").read_text())
+    cfg.update(default_camera_index=camera_index, move_camera=True, delta_a=2.0)
+    rot = [np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32)]
+    outs = []
+    for mod in (JC, TC):
+        center, obs = mod.get_center_view_worldspace_and_observant_coordinate(
+            cfg["mpm_space_viewpoint_center"], cfg["mpm_space_vertical_upward_axis"],
+            rot, 2.3, np.array([0.1, -0.2, 0.3]))
+        outs.append(mod.get_sim_camera_sequence(cfg, root / "gs", center, obs, 3))
+    (jv, *jrest), (tv, *trest) = outs
+    assert trest == jrest
+    np.testing.assert_array_equal(np.stack(tv), np.stack(jv))
+
+
+def _renderers(root: Path):
+    """(JAX SimRenderer, port SimRenderer, x_mpm, cov6_mpm) for the scene,
+    set up as the drivers do, with a sim_area crop so static splats render."""
+    from pixie_tpu.recon import gaussians as JG
+    from pixie_tpu.sim import render_sim as JS
+    from pixie_tpu.sim import transforms as tf
+    from pixie_tpu_torch.sim import render_sim as TS
+
+    gs = JG.load_gaussian_ply(root / "gs" / "point_cloud" / "iteration_50" / "point_cloud.ply")
+    pos = np.asarray(gs["xyz"])
+    cov = np.asarray(JG.covariance_upper(gs))
+    shs, op = np.asarray(JG.get_shs(gs)), np.asarray(JG.get_opacity(gs))
+    rot = tf.generate_rotation_matrices([30.0], [2])
+    m = tf.apply_rotations(pos, rot)[:, 2] < 0.12                  # the crop
+    unselected = {"pos": pos[~m], "cov6": cov[~m], "opacity": op[~m], "shs": shs[~m]}
+    pos_norm, scale, mean = tf.transform2origin(tf.apply_rotations(pos[m], rot))
+    x_mpm = tf.shift2center111(pos_norm, 0.1)
+    cov_mpm = (tf.apply_cov_rotations(cov[m], rot) * scale ** 2).astype(np.float32)
+    cam = json.loads((root / "sim.json").read_text())
+    kw = dict(camera_params=cam, model_path=root / "gs", n_frames=2, shs=shs[m],
+              opacity_act=op[m], scale_origin=scale, original_mean_pos=mean,
+              rotation_matrices=rot, z_shift=0.1, unselected=unselected, white_bg=True)
+    return (JS.SimRenderer.from_camera_params(**kw), TS.SimRenderer.from_camera_params(**kw),
+            x_mpm, cov_mpm)
+
+
+def test_render_frame_matches_jax(tmp_path):
+    jr, tr, x_mpm, cov_mpm = _renderers(_gs_scene(tmp_path))
+    want, (jpos, jcov) = jr.render_frame(1, x_mpm, cov_mpm)
+    got, (tpos, tcov) = tr.render_frame(1, torch.as_tensor(x_mpm), torch.as_tensor(cov_mpm))
+    assert got.shape == (88, 96, 3)
+    _assert_frames_close(got, want)
+    assert (want < 250).mean() > 0.05  # splats cover part of the white frame
+    np.testing.assert_allclose(to_np(tpos), np.asarray(jpos), atol=1e-5)
+    np.testing.assert_allclose(to_np(tcov), np.asarray(jcov), atol=1e-5)
+    np.testing.assert_allclose(to_np(tpos), jr.to_world(x_mpm), atol=1e-5)
+    np.testing.assert_allclose(tr.cov_to_world(cov_mpm), jr.cov_to_world(cov_mpm), atol=1e-9)
+
+
+def test_frame_ply_export_matches_jax(tmp_path):
+    from pixie_tpu.sim.render_sim import cov6_to_log_scales_quats as j_decomp
+    from pixie_tpu_torch.sim.render_sim import cov6_to_log_scales_quats as t_decomp
+
+    jr, tr, x_mpm, cov_mpm = _renderers(_gs_scene(tmp_path))
+    cov_w = jr.cov_to_world(cov_mpm)
+    for a, b in zip(t_decomp(cov_w), j_decomp(cov_w)):
+        np.testing.assert_array_equal(a, b)
+    pos_w = jr.to_world(x_mpm).astype(np.float32)
+    jr.export_gaussian_ply(tmp_path / "j.ply", pos_w, cov_w)
+    tr.export_gaussian_ply(tmp_path / "t.ply", pos_w, torch.as_tensor(cov_w))
+    assert (tmp_path / "t.ply").read_bytes() == (tmp_path / "j.ply").read_bytes()
+
+
+def test_png_writer_decodes_to_the_same_array(tmp_path):
+    from PIL import Image
+
+    from pixie_tpu_torch.sim.render_sim import save_frame_png
+
+    img = np.random.default_rng(0).integers(0, 256, (37, 53, 3), dtype=np.uint8)
+    save_frame_png(tmp_path / "a.png", img)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")), img)
+    save_frame_png(tmp_path / "b.png", img.astype(np.float32) / 255.0)
+    decoded = np.asarray(Image.open(tmp_path / "b.png")).astype(np.int32)
+    assert np.abs(decoded - img).max() <= 1
+
+
+def test_checkpoint_lookup_and_volumes_match_jax(tmp_path):
+    from pixie_tpu.recon.train_gaussians import search_for_max_iteration as j_search
+    from pixie_tpu.sim.filling import get_particle_volume as j_vol
+    from pixie_tpu_torch.recon.train_gaussians import search_for_max_iteration as t_search
+    from pixie_tpu_torch.sim.filling import get_particle_volume as t_vol
+
+    for name in ("iteration_100", "iteration_7000", "iteration_x", "other"):
+        (tmp_path / name).mkdir()
+    assert t_search(tmp_path) == j_search(tmp_path) == 7000
+    assert t_search(tmp_path / "other") == -1
+    pos = np.random.default_rng(0).uniform(0.5, 1.5, (500, 3)).astype(np.float32)
+    for uniform in (False, True):
+        np.testing.assert_array_equal(t_vol(pos, 24, 2.0 / 24, uniform),
+                                      j_vol(pos, 24, 2.0 / 24, uniform))
+
+
+# -- the whole GS path ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def gs_runs(tmp_path_factory):
+    from pixie_tpu.sim.driver import run_simulation as j_run
+    from pixie_tpu_torch.sim.driver import run_simulation as t_run
+
+    root = _gs_scene(tmp_path_factory.mktemp("gs_path"))
+    kw = dict(gaussian_checkpoint=root / "gs", render_img=True, save_ply=True, debug=True)
+    jinfo = j_run(root / "mapped_preds.ply", root / "sim.json", root / "jax",
+                  use_fast_solver=False, **kw)
+    tinfo = t_run(root / "mapped_preds.ply", root / "sim.json", root / "torch",
+                  device="cpu", **kw)
+    return root, jinfo, tinfo
+
+
+def test_gs_path_frames_match_jax(gs_runs):
+    from PIL import Image
+
+    root, _, _ = gs_runs
+    names = sorted(p.name for p in (root / "jax" / "frames").glob("*.png"))
+    assert names == ["00000.png", "00001.png", "00002.png"]
+    assert sorted(p.name for p in (root / "torch" / "frames").glob("*.png")) == names
+    for name in names:
+        want = np.asarray(Image.open(root / "jax" / "frames" / name))
+        got = np.asarray(Image.open(root / "torch" / "frames" / name))
+        _assert_frames_close(got, want)
+        assert got.mean() > 1.0  # splats on the black background
+
+
+def test_gs_path_plys_match_jax(gs_runs):
+    from pixie_tpu.recon.gaussians import load_gaussian_ply as j_load
+    from pixie_tpu_torch.recon.gaussians import load_gaussian_ply as t_load
+
+    root, _, _ = gs_runs
+    names = sorted(p.name for p in (root / "jax" / "ply_files").glob("*.ply"))
+    assert names == [f"frame_{i:05d}.ply" for i in range(3)]
+    moved = 0.0
+    for name in names:
+        want = j_load(root / "jax" / "ply_files" / name)
+        got = t_load(root / "torch" / "ply_files" / name)
+        np.testing.assert_allclose(to_np(got["xyz"]), np.asarray(want["xyz"]), atol=2e-5)
+        for k in ("f_dc", "f_rest", "opacity"):
+            np.testing.assert_array_equal(to_np(got[k]), np.asarray(want[k]), err_msg=k)
+        assert all(torch.isfinite(v).all() for v in got.values())
+        moved = max(moved, float(np.abs(np.asarray(want["xyz"]) - np.asarray(
+            j_load(root / "jax" / "ply_files" / names[0])["xyz"])).max()))
+    assert moved > 1e-4  # gravity moved the splats
+
+
+def test_gs_path_info_and_bcs_match_jax(gs_runs):
+    root, jinfo, tinfo = gs_runs
+    assert set(jinfo) <= set(tinfo)
+    for k in ("n_particles", "frames", "substeps_per_frame", "active_materials", "auto_bcs"):
+        assert tinfo[k] == jinfo[k], k
+    assert tinfo["median_render_ms"] is not None and tinfo["final_state_finite"]
+    assert json.loads((root / "torch" / "sim_info.json").read_text())["n_particles"] == 300
+    assert (json.loads((root / "torch" / "boundary_conditions.json").read_text())
+            == json.loads((root / "jax" / "boundary_conditions.json").read_text()))
+
+
+def test_gs_path_mixed_materials_match_jax(tmp_path, monkeypatch):
+    """A material PLY of its own vertices with mixed ids, densities, E and nu,
+    under a rotation and a sim_area crop: the kNN mapping of the whole PLY
+    onto the gaussians gives both drivers the same per-particle material,
+    density, E and nu (ids exact, floats rtol 1e-6) and the same BCs."""
+    from pixie_tpu.sim.driver import run_simulation as j_run
+    from pixie_tpu.sim.solver import MPMSolver as JSolver
+    from pixie_tpu.utils.io import make_material_vertex, write_ply
+    from pixie_tpu_torch.sim.driver import run_simulation as t_run
+    from pixie_tpu_torch.sim.solver import MPMSolver as TSolver
+
+    root = _gs_scene(tmp_path)
+    rng = np.random.default_rng(7)
+    verts = rng.uniform(-0.22, 0.22, (400, 3)).astype(np.float32)
+    write_ply(root / "mixed.ply", make_material_vertex(
+        coords=verts, density=rng.uniform(200.0, 2000.0, 400).astype(np.float32),
+        E=(10.0 ** rng.uniform(4.0, 6.0, 400)).astype(np.float32),
+        nu=rng.uniform(0.2, 0.4, 400).astype(np.float32),
+        material_id=np.array([0, 1, 2, 5])[2 * (verts[:, 0] > 0) + (verts[:, 1] > 0)]))
+    cfg = json.loads((root / "sim.json").read_text())
+    cfg.update(rotation_degree=[30.0], rotation_axis=[2], sim_area=[-1, 1, -1, 1, -1, 0.12])
+    (root / "mixed.json").write_text(json.dumps(cfg))
+    seen = {}
+    for name, cls in (("jax", JSolver), ("torch", TSolver)):
+        def record(self, density, E, nu, material_id, _orig=cls.set_per_particle_materials,
+                   _name=name):
+            seen[_name] = [np.asarray(a) for a in (material_id, density, E, nu)]
+            return _orig(self, density, E, nu, material_id)
+        monkeypatch.setattr(cls, "set_per_particle_materials", record)
+    kw = dict(n_frames=1, save_ply=False, gaussian_checkpoint=root / "gs")
+    jinfo = j_run(root / "mixed.ply", root / "mixed.json", root / "jax",
+                  use_fast_solver=False, **kw)
+    tinfo = t_run(root / "mixed.ply", root / "mixed.json", root / "torch", device="cpu", **kw)
+    assert 0 < tinfo["n_particles"] == jinfo["n_particles"] < 300  # the crop binds
+    assert tinfo["active_materials"] == jinfo["active_materials"] == [0, 1, 2, 5]
+    assert tinfo["auto_bcs"] == jinfo["auto_bcs"]
+    (t_mat, *t_vals), (j_mat, *j_vals) = seen["torch"], seen["jax"]
+    np.testing.assert_array_equal(t_mat, j_mat)
+    for t, j, k in zip(t_vals, j_vals, ("density", "E", "nu")):
+        np.testing.assert_allclose(t, j, rtol=1e-6, err_msg=k)
+        assert np.ptp(t) > 0.1 * np.max(t), k  # the values really vary
+
+
+def test_unported_options_raise(tmp_path):
+    from pixie_tpu_torch.sim.driver import run_simulation
+
+    root = _gs_scene(tmp_path)
+    cfg = json.loads((root / "sim.json").read_text())
+    cfg["particle_filling"] = {"n_grid": 24}
+    (root / "fill.json").write_text(json.dumps(cfg))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_simulation(root / "mapped_preds.ply", root / "fill.json", root / "o1",
+                       gaussian_checkpoint=root / "gs", device="cpu")
+    for kw in (dict(checkpoint_every=1), dict(resume=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_simulation(root / "mapped_preds.ply", root / "sim.json", root / "o2",
+                           device="cpu", **kw)
+    with pytest.raises(ValueError, match="gaussian_checkpoint"):
+        run_simulation(root / "mapped_preds.ply", root / "sim.json", root / "o3",
+                       render_img=True, device="cpu")
+
+
+def test_main_cli_renders_a_gs_checkpoint(tmp_path):
+    """``pipeline.main`` finds the object's 3DGS checkpoint and, as
+    pipeline.py does, simulates and renders its gaussians under the tree
+    config (camera 4 of cameras.json), then compiles the frames (one frame
+    of 400 substeps, on the CPU)."""
+    from pixie_tpu.config import compose
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.recon.gaussians import create_from_points, save_gaussian_ply
+    from pixie_tpu_torch.sim.camera import look_at_viewmat
+    from pixie_tpu_torch.utils.paths import get_output_paths, resolve_paths
+    from test_torch_slice import D, FC, OBJ, _make_object
+
+    _make_object(tmp_path, dict(cond_dim=32, model_channels=16, num_res_blocks=1,
+                                channel_mult=(1, 2), attention_resolutions=()))
+    argv = [f"obj_id={OBJ}", f"paths.base_path={tmp_path}",
+            f"paths.physgaussian_config_dir={REPO / 'config'}",
+            f"training.default_grid_size={D}", f"training.features.clip.feature_channels={FC}",
+            "training.training.unet_model_channels=16", "training.training.unet_num_res_blocks=1",
+            "training.training.unet_channel_mult=[1,2]", "physics.n_frames=1"]
+    gs = Path(get_output_paths(resolve_paths(compose(overrides=argv)), OBJ)["gs_output"])
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(250, 3))
+    pts = (0.3 * d / np.linalg.norm(d, axis=1, keepdims=True)
+           * rng.uniform(size=(250, 1)) ** (1 / 3)).astype(np.float32)
+    params = create_from_points(pts, colors=rng.uniform(0.2, 0.9, (250, 3)), initial_opacity=0.8)
+    save_gaussian_ply(gs / "point_cloud" / "iteration_7000" / "point_cloud.ply", params)
+    cams = []
+    for i in range(5):
+        c2w = np.linalg.inv(look_at_viewmat([2.0 * np.cos(i), 2.0 * np.sin(i), 0.5],
+                                            [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]))
+        cams.append({"id": i, "width": 64, "height": 64, "fx": 90.0, "fy": 90.0,
+                     "position": c2w[:3, 3].tolist(), "rotation": c2w[:3, :3].tolist()})
+    (gs / "cameras.json").write_text(json.dumps(cams))
+
+    pipeline.main(argv, device="cpu")
+    sim = tmp_path / "mpm_sim_outputs" / "neural" / OBJ / "sample_0"
+    info = json.loads((sim / "sim_info.json").read_text())
+    assert info["n_particles"] == 250 and info["median_render_ms"] is not None
+    assert (sim / "frames" / "00000.png").exists()
+    assert (sim / "ply_files" / "frame_00000.ply").exists()
+    assert list((sim / "frames").glob("output.*"))  # compile_video ran
