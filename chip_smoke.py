@@ -10,18 +10,27 @@ Phases (any failure exits non-zero):
   2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream}.cu for
                 sm_90a, one nvcc per source, started together
   3. kernels  — P2G / G2P kernels vs their plain versions on the card at the
-                slice's shapes (100k particles, n_grid 50), and the tile blend
-                vs its plain version at the render's shapes (~100k seeded
-                gaussians at 800x800, the tree config's camera), with timings
-  4. slice    — a seeded synthetic object (64^3 ball mask of ~100k voxels,
+                slice's shapes (100k particles, n_grid 50); the tile blend
+                (B3, tile_cap 512) and its backward (B4, tile_cap 1024, a
+                seeded cotangent) vs their plain versions at the render's
+                shapes (~100k seeded gaussians at 800x800, the tree config's
+                camera), with timings and B4's peak device memory
+  4. train    — 3DGS training through train_gaussian_splatting: 12 views of
+                the seeded 100k-gaussian model rendered at 800x800 with the
+                port's forward and written as PNGs + transforms.json; 100k
+                init points (the model's centres plus seeded noise), SH 3,
+                tile_cap 1024, the shipped learning rates, 300 iterations
+                with densify at 100 and 200 and an opacity reset at 250;
+                B3 and B4 launch counts must match the steps and renders run
+  5. slice    — a seeded synthetic object (64^3 ball mask of ~100k voxels,
                 768-channel float16 features, clip_features.npz) through
                 pixie_tpu_torch.pipeline: both U-Nets at the shipped width ->
                 mapped_preds.ply, then under
                 config/objaverse/custom_tree_config.json
                 (a) point-cloud mode: 1 frame x 400 substeps of MPM;
-                (b) GS mode: a seeded 3DGS checkpoint of ~100k gaussians
-                    (SH degree 3, 5 cameras at 800x800) -> 3 frames x 400
-                    substeps, each frame rendered to PNG + gaussian PLY;
+                (b) GS mode: the checkpoint phase 4 trained (its capture's
+                    cameras as cameras.json) -> 3 frames x 400 substeps,
+                    each frame rendered to PNG + gaussian PLY;
                 each path's kernel launch counts must equal its substeps
                 (and, in GS mode, its frames)
 The line before the last is the kernel JSON; the last line is
@@ -42,6 +51,14 @@ HERE = Path(__file__).resolve().parent
 N_PARTICLES, N_GRID, GRID_LIM, DT = 100_000, 50, 2.0, 1e-4
 N_FRAMES = 3             # GS path; the point-cloud path runs 1
 N_GAUSSIANS, RES = 100_000, 800
+N_VIEWS, TRAIN_ITERS = 12, 300
+# GSTrainConfig fields: densify at 100 and 200, an opacity reset at 250.  The
+# JAX trainer (and so the port) takes the screen-space gradient in pixels,
+# where the reference's backward.cu takes it in NDC units (x W/2): its 2e-4
+# threshold, converted to pixels at 800 px, is 2e-4 / 400
+TRAIN_CFG = dict(densify_from=100, densify_interval=100, densify_until=300,
+                 opacity_reset_interval=250, densify_grad_threshold=2e-4 / (RES / 2))
+KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward")
 # stated tolerances of phase 3, relative to the largest |value| of the plain
 # result: P2G sums ~170 float atomics per node in run-dependent order; G2P
 # sums 27 terms in a fixed order but contracts multiply-adds (FMA) where the
@@ -50,6 +67,10 @@ P2G_RTOL, G2P_RTOL = 1e-5, 1e-5
 # absolute, on colour and T in [0, 1]: the kernel's sequential product
 # against the plain version's log-domain chunked product, over <= 512 terms
 BLEND_ATOL = 1e-4
+# per column of d feat, relative to that column's largest |plain value|:
+# float atomics across tiles in run-dependent order, and the sequential
+# transmittance product against the plain version's log-domain chunks
+BWD_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -72,6 +93,21 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3, setup=None) -> float:
         if i >= warmup:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _reset_counts() -> None:
+    from pixie_tpu_torch.ops import gs_stream, transfer
+
+    transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = 0
+    gs_stream.BLEND_LAUNCHES = gs_stream.BLEND_BWD_LAUNCHES = 0
+
+
+def _read_counts() -> dict:
+    from pixie_tpu_torch.ops import gs_stream, transfer
+
+    return {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
+            "gs_blend": gs_stream.BLEND_LAUNCHES,
+            "gs_blend_backward": gs_stream.BLEND_BWD_LAUNCHES}
 
 
 def phase_device():
@@ -193,12 +229,13 @@ def phase_kernels(dev):
     return {"p2g": (p2g_err, *timings["p2g"]), "g2p": (g2p_err, *timings["g2p"])}
 
 
-def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES):
+def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES, n_cams: int = 5):
     """Seeded 3DGS model and cameras.  Gaussians fill a ball of radius 0.44
     (inside the object's voxel ball of radius 29/64, so every gaussian has a
     material vertex within the kNN's 0.1), with log-scales near the mean
     3-NN distance, random rotations, SH degree 3 and opacity logits mostly
-    above the 0.02 threshold; 5 cameras at res x res on a ring around it."""
+    above the 0.02 threshold; n_cams cameras at res x res on a ring around
+    it, at elevation 0.3 (even) and -0.2 (odd), as cameras.json entries."""
     import numpy as np
     import torch
 
@@ -221,9 +258,9 @@ def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES):
                   f_rest=t(rng.normal(0.0, 0.05, (n, 15, 3))),
                   opacity=t(rng.normal(2.0, 1.5, (n, 1))))
     cams = []
-    for i in range(5):
-        az = 2.0 * np.pi * i / 5
-        eye = 2.4 * np.array([np.cos(az) * np.cos(0.3), np.sin(az) * np.cos(0.3), np.sin(0.3)])
+    for i in range(n_cams):
+        az, el = 2.0 * np.pi * i / n_cams, (0.3 if i % 2 == 0 else -0.2)
+        eye = 2.4 * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)])
         c2w = np.linalg.inv(look_at_viewmat(eye, [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]))
         cams.append({"id": i, "img_name": f"view_{i:03d}", "width": res, "height": res,
                      "position": c2w[:3, 3].tolist(), "rotation": c2w[:3, :3].tolist(),
@@ -267,6 +304,144 @@ def phase_blend(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES):
     return err, k_ms, p_ms
 
 
+def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
+                         tile_cap: int = 1024):
+    """The blend backward (B4) at a training step's shapes: the GS model from
+    the tree config's camera 4, tile_cap 1024, a seeded cotangent."""
+    import torch
+
+    from pixie_tpu_torch.ops import gs_stream
+    from pixie_tpu_torch.recon import rasterizer as R
+    from pixie_tpu_torch.sim.camera import viewmat_from_camera_entry
+
+    params, cams = _gs_model(dev, n_gaussians, res)
+    cam = cams[4]
+    vm = torch.as_tensor(viewmat_from_camera_entry(cam), device=dev)
+    bins = R.bin_tiles(params, vm, R.Camera(res, res, cam["fx"], cam["fy"], res / 2, res / 2),
+                       tile_cap=tile_cap)
+    g = torch.Generator(device=dev).manual_seed(0)
+    d_img = torch.randn((res, res, 3), device=dev, generator=g)
+    d_trans = torch.randn((res, res), device=dev, generator=g)
+    args = (bins.feat, bins.idx, bins.starts, bins.counts, bins.tx_n, 0.3, d_img, d_trans)
+    peaks = []
+    for fn in (gs_stream.blend_backward, gs_stream.blend_backward_plain):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+        if fn is gs_stream.blend_backward:
+            d_k = out
+        else:
+            d_p = out
+    err = (d_k - d_p).abs().max(0).values
+    scale = d_p.abs().max(0).values
+    rel = (err / scale).tolist()
+    print(f"blend backward: {n_gaussians} gaussians at {res}x{res}, tile_cap {tile_cap}: "
+          f"{bins.idx.shape[0]} tile entries, largest tile {int(bins.raw.max())}, "
+          f"{int((bins.raw > tile_cap).sum())} tiles cut")
+    print("blend backward: per-column max_abs_err / max |plain| (mx my c0 c1 c2 r g b op): "
+          + " ".join(f"{r:.2e}" for r in rel) + f" (tol {BWD_RTOL:.0e})")
+    print("blend backward: max |plain| per column: " + " ".join(f"{v:.3e}" for v in scale.tolist()))
+    if not all(r <= BWD_RTOL for r in rel) or not bool(torch.isfinite(d_k).all()):
+        fail("gs blend backward kernel disagrees with its plain version")
+    k_ms = cuda_ms(lambda: gs_stream.blend_backward(*args))
+    p_ms = cuda_ms(lambda: gs_stream.blend_backward_plain(*args), reps=5, warmup=1)
+    print(f"gs_blend_backward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 / 5 "
+          f"CUDA-event timings); peak device memory above the inputs: kernel "
+          f"{peaks[0]:.1f} MiB, plain {peaks[1]:.1f} MiB", flush=True)
+    return float(err.max()), k_ms, p_ms
+
+
+def phase_train(dev, root: Path, n_gaussians: int = N_GAUSSIANS, res: int = RES,
+                n_views: int = N_VIEWS, iters: int = TRAIN_ITERS,
+                cfg_kw: dict | None = None) -> dict:
+    """3DGS training of a rendered capture through the port's entry point;
+    writes the checkpoint and the capture's cameras.json to root / "gs" and
+    returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pixie_tpu_torch.recon import rasterizer as R
+    from pixie_tpu_torch.recon.train_gaussians import GSTrainConfig, train_gaussian_splatting
+    from pixie_tpu_torch.sim.camera import viewmat_from_camera_entry
+
+    t0 = time.time()
+    target, cams = _gs_model(dev, n_gaussians, res, n_cams=n_views)
+    capture, gs = root / "capture", root / "gs"
+    capture.mkdir(parents=True)
+    gs.mkdir(parents=True)
+    frames = []
+    with torch.no_grad():
+        for i, cam in enumerate(cams):
+            vm = viewmat_from_camera_entry(cam)
+            img, _ = R.rasterize_tiled(target, torch.as_tensor(vm, device=dev),
+                                       R.Camera(res, res, cam["fx"], cam["fy"], res / 2, res / 2),
+                                       bg_color=0.0, tile_cap=1024)
+            png = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+            Image.fromarray(png).save(capture / f"{cam['img_name']}.png")
+            c2w = np.linalg.inv(vm.astype(np.float64))
+            c2w[:3, 1:3] *= -1.0                      # Blender axes: y up, looking down -z
+            frames.append({"file_path": f"{cam['img_name']}.png",
+                           "transform_matrix": c2w.tolist()})
+    (capture / "transforms.json").write_text(json.dumps(
+        {"fl_x": cams[0]["fx"], "fl_y": cams[0]["fy"], "cx": res / 2, "cy": res / 2,
+         "frames": frames}))
+    (gs / "cameras.json").write_text(json.dumps(cams))
+    rng = np.random.default_rng(1)
+    init = (target["xyz"].cpu().numpy() + rng.normal(0.0, 0.01, (n_gaussians, 3))).astype(
+        np.float32)
+    del target
+    torch.cuda.empty_cache()
+    print(f"setup: capture of {n_views} views at {res}x{res}, {n_gaussians} init points in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    cfg = GSTrainConfig(iterations=iters, **(TRAIN_CFG if cfg_kw is None else cfg_kw))
+    steps = []
+
+    def on_step(it, loss, l1, n):
+        torch.cuda.synchronize()
+        steps.append((it, time.perf_counter(), float(loss), n))
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    final = train_gaussian_splatting(capture, gs, cfg=cfg, init_points=init, log_every=100,
+                                     device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _read_counts()
+    metrics = json.loads((gs / "metrics.json").read_text())
+    ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:]) if a[0] >= 10]
+    events = [it for it in range(1, iters + 1)     # the trainer's densify rule
+              if cfg.densify_from <= it < cfg.densify_until and it % cfg.densify_interval == 0]
+    counts = {it: n for it, _, _, n in steps}
+    after = {e: counts.get(e + 1, metrics["n_gaussians"]) for e in events}
+    print(f"train: {iters} iterations in {wall:.1f} s (incl. the PSNR pass over {n_views} views); "
+          f"median {statistics.median(ms):.2f} ms/iter over iterations 10..{iters} "
+          f"(synchronized), p10 {np.percentile(ms, 10):.2f}, p90 {np.percentile(ms, 90):.2f}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"train: densify threshold {cfg.densify_grad_threshold:.3e}; loss {steps[0][2]:.5f} at iteration 1, "
+          f"{steps[-1][2]:.5f} at {iters}; "
+          f"gaussians {n_gaussians} -> " + ", ".join(
+              f"{after[e]} after the densify at {e}" for e in events)
+          + f"; final {metrics['n_gaussians']}; psnr_mean {metrics['psnr_mean']:.3f} dB; "
+          f"launches {launches} for {iters} steps + {n_views} PSNR renders", flush=True)
+    if not steps[-1][2] < steps[0][2]:
+        fail("training loss did not fall")
+    if launches != {"p2g": 0, "g2p": 0, "gs_blend": iters + n_views,
+                    "gs_blend_backward": iters}:
+        fail(f"training launches {launches} != {iters} steps + {n_views} renders")
+    if not all(bool(torch.isfinite(v).all()) for v in final.values()) or not np.isfinite(
+            metrics["psnr_mean"]):
+        fail("non-finite parameters or PSNR after training")
+    if not (gs / "point_cloud" / f"iteration_{iters}" / "point_cloud.ply").exists():
+        fail("no checkpoint PLY")
+    return launches
+
+
 def _make_object(root: Path, d: int, fc: int, model_kwargs: dict):
     """Seeded synthetic object and U-Net checkpoints (ball of radius 29/64 d)."""
     import numpy as np
@@ -300,18 +475,18 @@ def _make_object(root: Path, d: int, fc: int, model_kwargs: dict):
     return render, feats, mask
 
 
-def phase_slice(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = None,
-                n_frames: int = N_FRAMES, n_gaussians: int = N_GAUSSIANS, res: int = RES):
+def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dict | None = None,
+                n_frames: int = N_FRAMES, res: int = RES) -> dict:
     """The main path at the shipped width (defaults: 64^3 x 768, U-Nets with
-    model_channels 64, mult (1,1,2,4), 3 res blocks, projector 768->128->32;
-    ~100k gaussians rendered at 800x800).  Returns the GS path's launches."""
+    model_channels 64, mult (1,1,2,4), 3 res blocks, projector 768->128->32),
+    then the 3DGS checkpoint in ``gs_dir`` rendered at res x res.  Returns
+    each path's launches."""
     import numpy as np
     import torch
     from PIL import Image
 
     from pixie_tpu_torch import pipeline
-    from pixie_tpu_torch.ops import gs_stream, transfer
-    from pixie_tpu_torch.recon.gaussians import load_gaussian_ply, save_gaussian_ply
+    from pixie_tpu_torch.recon.gaussians import load_gaussian_ply
     from pixie_tpu_torch.train.inference import CombinedInference, load_params
     from pixie_tpu_torch.utils.io import read_ply
 
@@ -361,19 +536,19 @@ def phase_slice(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = Non
         torch.cuda.empty_cache()
 
         # (a) point-cloud mode, one frame
-        transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = gs_stream.BLEND_LAUNCHES = 0
+        _reset_counts()
         sim_out = root / "sim"
         info = pipeline.run_physics_simulation(ply, tree_cfg, sim_out, n_frames=1, debug=True,
                                                device=dev)
-        launches = {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
-                    "gs_blend": gs_stream.BLEND_LAUNCHES}
+        pc_launches = _read_counts()
         substeps = info["substeps_per_frame"]
         print(f"mpm (point cloud): {info['n_particles']} particles, 1 frame x {substeps} "
               f"substeps, materials {info['active_materials']}, "
               f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
-              f"{info['median_frame_s']:.3f} s; launches {launches}", flush=True)
-        if launches != {"p2g": substeps, "g2p": substeps, "gs_blend": 0}:
-            fail(f"point-cloud launches {launches} != substeps run {substeps}")
+              f"{info['median_frame_s']:.3f} s; launches {pc_launches}", flush=True)
+        if pc_launches != {"p2g": substeps, "g2p": substeps, "gs_blend": 0,
+                           "gs_blend_backward": 0}:
+            fail(f"point-cloud launches {pc_launches} != substeps run {substeps}")
         frames = sorted((sim_out / "ply_files").glob("frame_*.ply"))
         if len(frames) != 1:
             fail(f"{len(frames)} frame PLYs, expected 1")
@@ -386,28 +561,21 @@ def phase_slice(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = Non
             if not (sim_out / name).exists():
                 fail(f"missing artifact {name}")
 
-        # (b) GS mode: a seeded 3DGS checkpoint, rendered every frame
-        t0 = time.time()
-        gs = root / "gs"
-        params, cams = _gs_model(dev, n_gaussians, res)
-        save_gaussian_ply(gs / "point_cloud" / "iteration_30000" / "point_cloud.ply", params)
-        (gs / "cameras.json").write_text(json.dumps(cams))
-        print(f"setup: 3DGS checkpoint of {n_gaussians} gaussians, {len(cams)} cameras at "
-              f"{res}x{res} in {time.time() - t0:.1f} s", flush=True)
-        transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = gs_stream.BLEND_LAUNCHES = 0
+        # (b) GS mode: the trained 3DGS checkpoint, rendered every frame
+        _reset_counts()
         gs_out = root / "sim_gs"
         info = pipeline.run_physics_simulation(ply, tree_cfg, gs_out, n_frames=n_frames,
-                                               debug=True, gaussian_checkpoint=gs,
+                                               debug=True, gaussian_checkpoint=gs_dir,
                                                render_img=True, device=dev)
-        launches = {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
-                    "gs_blend": gs_stream.BLEND_LAUNCHES}
+        launches = _read_counts()
         substeps = n_frames * info["substeps_per_frame"]
         print(f"mpm (GS): {info['n_particles']} gaussians, {n_frames} frames x "
               f"{info['substeps_per_frame']} substeps, materials {info['active_materials']}, "
               f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
               f"{info['median_frame_s']:.3f} s, median render {info['median_render_ms']:.1f} ms "
               f"(render + PNG + PLY); launches {launches}", flush=True)
-        if launches != {"p2g": substeps, "g2p": substeps, "gs_blend": n_frames}:
+        if launches != {"p2g": substeps, "g2p": substeps, "gs_blend": n_frames,
+                        "gs_blend_backward": 0}:
             fail(f"GS launches {launches} != {substeps} substeps, {n_frames} frames")
         pngs = sorted((gs_out / "frames").glob("*.png"))
         if [p.name for p in pngs] != [f"{i:05d}.png" for i in range(n_frames)]:
@@ -428,7 +596,7 @@ def phase_slice(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = Non
                 fail(f"{p.name}: non-finite or missing gaussians")
         if not info["final_state_finite"]:
             fail("non-finite positions after the last GS substep")
-        return launches
+        return {"point_cloud": pc_launches, "gs": launches}
 
 
 def main() -> int:
@@ -441,7 +609,12 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(dev)
     kern["gs_blend"] = phase_blend(dev)
-    launches = phase_slice(dev)
+    kern["gs_blend_backward"] = phase_blend_backward(dev)
+    with tempfile.TemporaryDirectory(prefix="pixie_smoke_train_") as tmp:
+        paths = {"train": phase_train(dev, Path(tmp))}
+        paths.update(phase_slice(dev, gs_dir=Path(tmp) / "gs"))
+    print(f"launches by path: {paths}")
+    launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pixie_tpu"))
     if leaked:
         fail(f"JAX or the JAX package was imported: {leaked[:5]}")
@@ -449,7 +622,8 @@ def main() -> int:
     for name, src, replaces in (
             ("p2g", "transfer.cu", "pixie_tpu/ops/transfer.py:361"),
             ("g2p", "transfer.cu", "pixie_tpu/ops/transfer.py:439"),
-            ("gs_blend", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:210")):
+            ("gs_blend", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:210"),
+            ("gs_blend_backward", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:252")):
         err, k_ms, p_ms = kern[name]
         rows.append({"name": name, "route": "cuda", "source": f"pixie_tpu_torch/csrc/{src}",
                      "replaces": replaces, "launches": launches[name], "max_abs_err": err,

@@ -1,5 +1,8 @@
-"""The neural inference slice of ``pipeline.py`` from a precomputed voxel grid:
+"""The stages of ``pipeline.py`` that the port holds:
 
+  train_gaussians              — the object's multi-view capture ->
+      3DGS training -> gs/point_cloud/iteration_K/point_cloud.ply
+      (pipeline.py:130-140)
   generate_neural_segmentation — clip_features_{features,mask}.npy +
       clip_features.npz -> both U-Nets -> sample_{k}_pred.npy ->
       denormalization -> mapped_preds.ply  (pipeline.py:187-317)
@@ -8,8 +11,9 @@
 
 The stage functions take explicit arguments (no config tree needed);
 ``main(argv)`` composes the same ``key=value`` overrides as ``pipeline.py``
-through ``pixie_tpu.config`` and runs both stages.  The voxelizer and the
-training stages are not in this port.
+through ``pixie_tpu.config`` and runs the three stages.  The Blender render
+stage that writes the capture, field training, the voxelizer and U-Net
+training are not in this port.
 
 Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
 """
@@ -49,6 +53,42 @@ def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
         except (IndexError, ValueError):
             continue
     return max(candidates)[1] if candidates else None
+
+
+def has_capture(data_dir: str | Path) -> bool:
+    """Whether ``data_dir`` holds a capture ``load_dataset`` reads: a
+    ``transforms*.json`` or a COLMAP sparse model."""
+    from pixie_tpu_torch.recon.colmap import is_colmap_capture  # noqa: PLC0415
+
+    data_dir = Path(data_dir)
+    return (any((data_dir / n).exists() for n in ("transforms.json", "transforms_train.json"))
+            or is_colmap_capture(data_dir))
+
+
+def train_gaussians(
+    data_dir: str | Path,
+    gs_output: str | Path,
+    iterations: int = 10000,
+    overwrite: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict | None:
+    """3DGS training of the capture in ``data_dir`` into ``gs_output``;
+    returns the trained parameters, or None when ``gs_output/point_cloud``
+    exists and ``overwrite`` is off, or when ``data_dir`` holds no capture
+    (the Blender render stage that writes one is not ported)."""
+    from pixie_tpu_torch.recon.train_gaussians import (  # noqa: PLC0415
+        train_gaussian_splatting,
+    )
+
+    out = Path(gs_output)
+    if (out / "point_cloud").exists() and not overwrite:
+        logging.info("[gs] checkpoint exists, skipping")
+        return None
+    if not has_capture(data_dir):
+        logging.info("[gs] no capture (transforms*.json or COLMAP model) in %s: "
+                     "3DGS training skipped", data_dir)
+        return None
+    return train_gaussian_splatting(data_dir, out, iterations=iterations, device=device)
 
 
 def generate_neural_segmentation(
@@ -136,7 +176,8 @@ def run_physics_simulation(
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
-    """``pipeline.py``'s neural slice with its ``key=value`` overrides."""
+    """``pipeline.py``'s 3DGS training and neural slice with its
+    ``key=value`` overrides."""
     from pixie_tpu.config import compose  # noqa: PLC0415  (imports only yaml)
     from pixie_tpu_torch.utils.paths import (  # noqa: PLC0415
         create_directories, get_output_paths, resolve_paths,
@@ -153,6 +194,9 @@ def main(argv=None, device: str | torch.device = "cuda"):
     create_directories(paths)
 
     t0 = time.time()
+    train_gaussians(paths["data_dir"], paths["gs_output"],
+                    iterations=cfg.training_3d.gs_iterations,
+                    overwrite=bool(cfg.overwrite), device=device)
     tr = cfg.training
     # the U-Net width of the config tree (defaults: the shipped nets)
     model_kwargs = dict(cond_dim=tr.cond_dim, model_channels=tr.training.unet_model_channels,
@@ -190,7 +234,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
         render_img=bool(cfg.physics.get("render_img", True)) and has_gs,
         compile_video=bool(cfg.physics.get("compile_video", True)), white_bg=white_bg,
         overwrite=bool(cfg.overwrite), device=device)
-    logging.info("neural slice complete in %.1fs", time.time() - t0)
+    logging.info("pipeline stages complete in %.1fs", time.time() - t0)
 
 
 if __name__ == "__main__":

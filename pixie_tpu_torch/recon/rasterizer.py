@@ -1,4 +1,4 @@
-"""Gaussian-splat rasterizer, forward (port of pixie_tpu/recon/rasterizer.py).
+"""Differentiable Gaussian-splat rasterizer (port of pixie_tpu/recon/rasterizer.py).
 
 ``project_gaussians``  EWA projection to screen: means2D, 2D covariance,
                        depth, rgb, opacity (forward.cu preprocessCUDA).
@@ -9,15 +9,25 @@
                        (tile, depth-rank) key duplication over each
                        splat's 3-sigma tile bbox, one key sort, per-tile
                        ranges, then the tile blend of ``ops/gs_stream.py``
-                       (the CUDA kernel on CUDA tensors).
+                       (the CUDA kernels on CUDA tensors).
+
+Both are differentiable: autograd of plain PyTorch for ``rasterize``; for
+``rasterize_tiled`` the blend's own backward (``gs_stream.blend``) gives
+d feat, and autograd carries it through the projection to the params.  The
+keys, sort and ranges are integer work and carry no gradient.
+``mean2d_offset`` (N, 2), added to the projected means, is JAX's hook for
+the per-gaussian screen-space gradient that drives densification.
 
 The binning is plain PyTorch, as XLA ops surround the Pallas kernel in the
 JAX package.  Both truncations of the JAX tiled path are mirrored: a splat
 reaches at most ``max_tiles_side``² tiles from its clamped bbox start, and
-a tile blends its front-most ``tile_cap`` splats.  The JAX stream layout
-(its ``stream_cap`` rows of 128-aligned tile chunks) is TPU layout and is
-not built: the index list is allocated exactly, so no tile renders empty
-for lack of stream rows (``jax_stream_overflows`` says when JAX would).
+a tile blends its front-most ``tile_cap`` splats.  JAX's two kernel
+layouts of that list, the 128-aligned stream (``blend_stream``, tile_cap a
+multiple of 128 up to 1152) and the dense (T, tile_cap) slot table
+(``blend_tiles``, any other tile_cap), are TPU layouts of one function:
+both run here on the exact per-tile index lists.  The index list is
+allocated exactly, so no tile renders empty for lack of stream rows
+(``jax_stream_overflows`` says when JAX's stream would).
 """
 
 from __future__ import annotations
@@ -127,11 +137,13 @@ def _conic(cov2d):
 
 
 def rasterize(params, viewmat, cam: Camera, bg_color=1.0, scaling_modifier=1.0,
-              chunk: int = 256):
+              chunk: int = 256, mean2d_offset=None):
     """Dense oracle: (image (H,W,3), alpha (H,W)) by a global depth sort and
     chunked blending of every splat against every pixel."""
     means2d, cov2d, depth, rgb, opacity = project_gaussians(
         params, viewmat, cam, scaling_modifier)
+    if mean2d_offset is not None:
+        means2d = means2d + mean2d_offset
     dev = means2d.device
     order = torch.sort(depth, stable=True).indices
     means2d, cov2d, rgb, opacity = means2d[order], cov2d[order], rgb[order], opacity[order]
@@ -169,10 +181,13 @@ class TileBins:
 
 
 def bin_tiles(params, viewmat, cam: Camera, scaling_modifier=1.0, tile: int = 16,
-              tile_cap: int = 512, max_tiles_side: int = 6) -> TileBins:
-    """Projection and tile binning of ``rasterize_tiled`` (rasterizer.py:363-429)."""
+              tile_cap: int = 512, max_tiles_side: int = 6, mean2d_offset=None) -> TileBins:
+    """Projection and tile binning of ``rasterize_tiled`` (rasterizer.py:363-429);
+    ``feat`` carries the gradient back to ``params`` and ``mean2d_offset``."""
     means2d, cov2d, depth, rgb, opacity = project_gaussians(
         params, viewmat, cam, scaling_modifier)
+    if mean2d_offset is not None:
+        means2d = means2d + mean2d_offset
     dev = means2d.device
     n = means2d.shape[0]
     ty_n, tx_n = cam.height // tile, cam.width // tile
@@ -230,24 +245,45 @@ def jax_stream_overflows(bins: TileBins) -> bool:
     return need > n_blocks
 
 
-def rasterize_tiled(params, viewmat, cam: Camera, bg_color=1.0, scaling_modifier=1.0,
-                    tile: int = 16, tile_cap: int = 512, max_tiles_side: int = 6):
-    """Tile-culled rasterization, forward only: (image (H,W,3), alpha (H,W)).
+def slot_table_chunk(tile_cap: int, chunk: int) -> int | None:
+    """The chunk JAX's slot-table branch blends with (rasterizer.py:502-522),
+    or None on the stream branch (tile_cap a multiple of 128 up to 1152).
+    Raises where JAX raises: ``tile_cap % chunk``, and a carry-grown chunk
+    (the TPU kernel keeps at most 4 chunk carries) that does not divide
+    tile_cap."""
+    if tile_cap % chunk:
+        raise ValueError(f"tile_cap={tile_cap} must be a multiple of chunk={chunk}")
+    if tile_cap % gs_stream.CH == 0 and 1 <= tile_cap // gs_stream.CH <= 9:
+        return None
+    kchunk = chunk
+    while tile_cap // kchunk - 1 > 4:
+        kchunk *= 2
+    if tile_cap % kchunk:
+        raise ValueError(
+            f"tile_cap={tile_cap} is not divisible by the carry-grown chunk {kchunk} "
+            f"(from chunk={chunk}); pick tile_cap as a multiple of a power-of-two "
+            f"chunk (e.g. 512/128, 1024/256)")
+    return kchunk
 
-    H and W must be multiples of ``tile`` (16).  This is the JAX function's
-    stream branch (rasterizer.py:433-488); the blend runs in
-    ``ops/gs_stream.blend`` (the CUDA kernel on CUDA tensors).  The dense
-    slot-table branch (kernel B5 or the XLA scan) is not ported."""
+
+def rasterize_tiled(params, viewmat, cam: Camera, bg_color=1.0, scaling_modifier=1.0,
+                    tile: int = 16, tile_cap: int = 512, max_tiles_side: int = 6,
+                    chunk: int = 128, mean2d_offset=None):
+    """Tile-culled differentiable rasterization: (image (H,W,3), alpha (H,W)).
+
+    H and W must be multiples of ``tile`` (16).  Both kernel branches of the
+    JAX function, the stream (rasterizer.py:433-488) and the slot table
+    (B5, :490-533), blend each tile's front-most ``tile_cap`` splats; here
+    both run in ``ops/gs_stream.blend`` (the CUDA kernels on CUDA tensors).
+    ``chunk`` only decides, as in JAX, which tile_caps are accepted.  Other
+    tile sizes are JAX's XLA-scan branch, which is not ported."""
     if tile != 16:
-        raise NotImplementedError(f"tile={tile}: the blend kernel takes 16x16 tiles")
+        raise NotImplementedError(f"tile={tile}: the blend kernels take 16x16 tiles")
     if cam.height % tile or cam.width % tile:
         raise ValueError(f"image {cam.height}x{cam.width} is not a multiple of {tile}")
-    if tile_cap % gs_stream.CH or not 1 <= tile_cap // gs_stream.CH <= 9:
-        raise NotImplementedError(
-            "only the stream branch of rasterize_tiled is ported (tile_cap a "
-            "multiple of 128 up to 1152); the slot-table branch (B5) is "
-            "ROADMAP.md 'Next slices' (c)")
-    bins = bin_tiles(params, viewmat, cam, scaling_modifier, tile, tile_cap, max_tiles_side)
+    slot_table_chunk(tile_cap, chunk)
+    bins = bin_tiles(params, viewmat, cam, scaling_modifier, tile, tile_cap, max_tiles_side,
+                     mean2d_offset)
     img, trans = gs_stream.blend(bins.feat, bins.idx, bins.starts, bins.counts,
                                  bins.tx_n, float(bg_color))
     return img, 1.0 - trans

@@ -8,14 +8,19 @@ to atol 1e-5 / rtol 1e-4 (momenta up to ~1e-1); G2P sums the 27 nodes in a
 fixed order but contracts multiply-adds, atol 1e-5 / rtol 1e-4.  The tile
 blend's sequential transmittance product against the plain version's
 log-domain chunked product agrees to atol 1e-4 on colour and T (values in
-[0, 1], up to 512 terms).  This file imports no JAX package module.
+[0, 1], up to 512 terms).  The blend backward sums float atomics across
+tiles in run-dependent order: each column of d feat agrees with the plain
+version to 1e-5 of that column's largest |value| (measured 3.5e-7 of it at
+800x800).  This file imports no JAX package module.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import cuda_device, random_particles, to_np  # noqa: F401  (fixture)
+from torch_parity import (  # noqa: F401  (fixture)
+    cuda_device, random_particles, to_np, underflow_scene,
+)
 
 from pixie_tpu_torch.ops import gs_stream, transfer
 from pixie_tpu_torch.recon import rasterizer as R
@@ -175,3 +180,75 @@ def test_blend_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         gs_stream.blend(args[0], args[1], args[2], args[3][:-1], bins.tx_n)
     with pytest.raises(ValueError, match="tx_n"):
         gs_stream.blend(*args, 7)
+
+
+def _cotangents(bins, seed=0):
+    h, w = bins.starts.shape[0] // bins.tx_n * 16, bins.tx_n * 16
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(size=(h, w, 3)).astype(np.float32)),
+            torch.as_tensor(rng.normal(size=(h, w)).astype(np.float32)))
+
+
+def _assert_columns_close(got, want):
+    got, want = to_np(got), to_np(want)
+    for c in range(9):
+        scale = float(np.abs(want[:, c]).max())
+        assert scale > 0.0, c
+        np.testing.assert_allclose(got[:, c], want[:, c], rtol=0, atol=1e-5 * scale, err_msg=c)
+
+
+def _underflow_bins():
+    p, vm = underflow_scene()
+    return R.bin_tiles({k: torch.as_tensor(v) for k, v in p.items()}, torch.as_tensor(vm),
+                       R.Camera(64, 64, 64.0, 64.0, 32.0, 32.0), tile_cap=256)
+
+
+@pytest.mark.parametrize("case", ["random", "underflow", "tile_cap_truncated"])
+def test_blend_backward_kernel_matches_plain(cuda_device, case):
+    bins = {"random": lambda: _splat_bins(tile_cap=512),
+            "underflow": _underflow_bins,
+            "tile_cap_truncated": lambda: _splat_bins(tile_cap=128)}[case]()
+    args = (bins.feat, bins.idx, bins.starts, bins.counts)
+    if case == "underflow":
+        assert float(gs_stream.blend_plain(*args, bins.tx_n)[1].min()) == 0.0  # T underflowed
+    if case == "tile_cap_truncated":
+        assert int((bins.raw > 128).sum()) > 0
+    di, dt = _cotangents(bins)
+    want = gs_stream.blend_backward_plain(*args, bins.tx_n, 0.3, di, dt)
+    before = gs_stream.BLEND_BWD_LAUNCHES
+    got = gs_stream.blend_backward(*(t.to(cuda_device) for t in args), bins.tx_n, 0.3,
+                                   di.to(cuda_device), dt.to(cuda_device))
+    assert gs_stream.BLEND_BWD_LAUNCHES == before + 1
+    _assert_columns_close(got, want)
+
+
+def test_rasterize_tiled_backward_launches_each_kernel_once(cuda_device):
+    """Autograd through rasterize_tiled on CUDA tensors runs B3 once and B4
+    once, and its gradients match the CPU (plain) ones to 1e-4 of each
+    key's largest |grad|."""
+    p, vm = underflow_scene()
+    cam = R.Camera(64, 64, 64.0, 64.0, 32.0, 32.0)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        tp = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in p.items()}
+        before = (gs_stream.BLEND_LAUNCHES, gs_stream.BLEND_BWD_LAUNCHES)
+        img, alpha = R.rasterize_tiled(tp, torch.as_tensor(vm, device=dev), cam, bg_color=0.25)
+        (img.square().sum() + alpha.sum()).backward()
+        launched = (gs_stream.BLEND_LAUNCHES - before[0], gs_stream.BLEND_BWD_LAUNCHES - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = {k: to_np(v.grad) for k, v in tp.items()}
+    for k, want in grads["cpu"].items():
+        np.testing.assert_allclose(grads[str(cuda_device)][k], want, rtol=0,
+                                   atol=1e-4 * float(np.abs(want).max()), err_msg=k)
+
+
+def test_blend_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    bins = _splat_bins(n=200)
+    args = [t.to(cuda_device) for t in (bins.feat, bins.idx, bins.starts, bins.counts)]
+    di, dt = (t.to(cuda_device) for t in _cotangents(bins))
+    with pytest.raises(ValueError, match="shape"):
+        gs_stream.blend_backward(*args, bins.tx_n, 0.0, di[:-16], dt)
+    with pytest.raises(ValueError, match="expected cuda"):
+        gs_stream.blend_backward(*args, bins.tx_n, 0.0, di, dt.cpu())
+    with pytest.raises(TypeError):
+        gs_stream.blend_backward(*args, bins.tx_n, 0.0, di.double(), dt)

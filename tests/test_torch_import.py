@@ -33,7 +33,9 @@ def test_module_list_covers_the_slice():
     for m in ("pixie_tpu_torch.ops.transfer", "pixie_tpu_torch.sim.driver",
               "pixie_tpu_torch.models.unet3d", "pixie_tpu_torch.pipeline",
               "pixie_tpu_torch.ops.gs_stream", "pixie_tpu_torch.recon.rasterizer",
-              "pixie_tpu_torch.sim.render_sim"):
+              "pixie_tpu_torch.sim.render_sim", "pixie_tpu_torch.recon.train_gaussians",
+              "pixie_tpu_torch.recon.train_field", "pixie_tpu_torch.recon.colmap",
+              "pixie_tpu_torch.utils.metrics"):
         assert m in MODULES
 
 

@@ -231,14 +231,33 @@ def test_blend_plain_empty_and_transparent_tiles():
 
 
 def test_rasterize_tiled_raises_off_the_stream_branch():
+    """Off the stream branch: tile_cap 1280 is JAX's slot-table branch (B5)
+    and now runs through the same blend, matching JAX's image (atol 2e-5);
+    tile_cap 100 (not a multiple of chunk) raises where JAX raises; tile 8
+    (JAX's XLA-scan branch, not a kernel) still raises."""
+    from pixie_tpu.recon import rasterizer as JR
     from pixie_tpu_torch.recon import rasterizer as TR
 
-    p, vm = _raster_scene(n=10)
-    tp = {k: torch.as_tensor(v) for k, v in p.items()}
-    cam = TR.Camera(32, 32, 32.0, 32.0, 16.0, 16.0)
-    for kw in (dict(tile_cap=100), dict(tile_cap=1280), dict(tile=8)):
-        with pytest.raises(NotImplementedError):
-            TR.rasterize_tiled(tp, torch.as_tensor(vm), cam, **kw)
+    p, vm = _raster_scene(n=300, seed=2)
+    jp, tp = _both(p)
+    cam = (64, 64, 64.0, 64.0, 32.0, 32.0)
+    want = JR.rasterize_tiled(jp, jnp.asarray(vm), JR.Camera(*cam), bg_color=0.25, tile_cap=1280)
+    got = TR.rasterize_tiled(tp, torch.as_tensor(vm), TR.Camera(*cam), bg_color=0.25,
+                             tile_cap=1280)
+    assert TR.slot_table_chunk(1280, 128) == 256    # the carry-grown chunk of JAX's B5 call
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(to_np(g), np.asarray(w), atol=2e-5)
+    assert float(to_np(got[1]).max()) > 0.5
+    small = TR.Camera(32, 32, 32.0, 32.0, 16.0, 16.0)
+    with pytest.raises(AssertionError):
+        JR.rasterize_tiled(jp, jnp.asarray(vm), JR.Camera(32, 32, 32.0, 32.0, 16.0, 16.0),
+                           tile_cap=100)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        TR.rasterize_tiled(tp, torch.as_tensor(vm), small, tile_cap=100)
+    with pytest.raises(ValueError, match="carry-grown"):    # JAX's ValueError (:518-522)
+        TR.rasterize_tiled(tp, torch.as_tensor(vm), small, tile_cap=1408)
+    with pytest.raises(NotImplementedError):
+        TR.rasterize_tiled(tp, torch.as_tensor(vm), small, tile=8)
 
 
 # -- render_sim and the camera ---------------------------------------------------
@@ -551,3 +570,70 @@ def test_main_cli_renders_a_gs_checkpoint(tmp_path):
     assert (sim / "frames" / "00000.png").exists()
     assert (sim / "ply_files" / "frame_00000.ply").exists()
     assert list((sim / "frames").glob("output.*"))  # compile_video ran
+
+
+def test_main_cli_trains_a_capture_then_renders_it(tmp_path):
+    """``pipeline.main`` runs pipeline.py's train_gaussians stage on the
+    object's capture (the analytic sphere, 5 views at 32x32, 3 iterations
+    from 5000 random points in the unit cube), then simulates and renders
+    the checkpoint it trained: one frame of 40 substeps on the CPU (the tree
+    config at frame_dt 4e-3), seen from the capture's camera 4 (cameras.json
+    in the reference's layout).
+    The object's material PLY is given (a jelly lattice over the cube), so
+    the neural stage finds it and skips, as pipeline.py's does."""
+    from test_recon import make_synthetic_blender_dataset
+
+    from pixie_tpu.config import compose
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.recon.gaussians import load_gaussian_ply
+    from pixie_tpu_torch.recon.train_field import load_dataset
+    from pixie_tpu_torch.recon.train_gaussians import blender_viewmat
+    from pixie_tpu_torch.utils.io import make_material_vertex, write_ply
+    from pixie_tpu_torch.utils.paths import get_output_paths, resolve_paths
+
+    obj = "capture_obj"
+    tree = json.loads((REPO / "config" / "objaverse" / "custom_tree_config.json").read_text())
+    (tmp_path / "config" / "objaverse").mkdir(parents=True)
+    (tmp_path / "config" / "objaverse" / "custom_tree_config.json").write_text(
+        json.dumps({**tree, "frame_dt": 4e-3}))
+    argv = [f"obj_id={obj}", f"paths.base_path={tmp_path}",
+            f"paths.physgaussian_config_dir={tmp_path / 'config'}", "physics.n_frames=1",
+            "training_3d.gs_iterations=3"]
+    paths = get_output_paths(resolve_paths(compose(overrides=argv)), obj)
+    data = make_synthetic_blender_dataset(Path(paths["data_dir"]), n_views=5, res=32)
+    g = np.linspace(-0.55, 0.55, 12, dtype=np.float32)
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    k = len(lattice)
+    write_ply(Path(paths["render_output"]) / "sample_0" / "mapped_preds.ply",
+              make_material_vertex(coords=lattice, density=np.full(k, 200.0, np.float32),
+                                   E=np.full(k, 2e6, np.float32), nu=np.full(k, 0.4, np.float32),
+                                   material_id=np.zeros(k, np.int64)))
+    gs = Path(paths["gs_output"])
+    ds = load_dataset(data)
+    cams = []
+    for i, c2w in enumerate(ds["c2w"]):
+        cv = np.linalg.inv(blender_viewmat(c2w))       # camera-to-world, +z forward
+        cams.append({"id": i, "width": 32, "height": 32, "fx": ds["intrinsics"][0],
+                     "fy": ds["intrinsics"][1], "position": cv[:3, 3].tolist(),
+                     "rotation": cv[:3, :3].tolist()})
+    gs.mkdir(parents=True)
+    (gs / "cameras.json").write_text(json.dumps(cams))
+
+    pipeline.main(argv, device="cpu")
+    trained = load_gaussian_ply(gs / "point_cloud" / "iteration_3" / "point_cloud.ply")
+    metrics = json.loads((gs / "metrics.json").read_text())
+    assert len(trained["xyz"]) == metrics["n_gaussians"] == 5000
+    assert len(metrics["psnr_per_view"]) == 5
+    sim = tmp_path / "mpm_sim_outputs" / "neural" / obj / "sample_0"
+    info = json.loads((sim / "sim_info.json").read_text())
+    assert info["n_particles"] == 5000 and info["median_render_ms"] is not None
+    assert (sim / "frames" / "00000.png").exists()
+    assert (sim / "ply_files" / "frame_00000.ply").exists()
+    # the frame's gaussians are the trained ones, moved by the rollout
+    frame = load_gaussian_ply(sim / "ply_files" / "frame_00000.ply")
+    np.testing.assert_array_equal(to_np(frame["f_dc"]), to_np(trained["f_dc"]))
+    # a second run finds the checkpoint and skips training; no capture, no training
+    before = (gs / "metrics.json").stat().st_mtime_ns
+    assert pipeline.train_gaussians(paths["data_dir"], gs, iterations=3, device="cpu") is None
+    assert (gs / "metrics.json").stat().st_mtime_ns == before
+    assert pipeline.train_gaussians(tmp_path / "nowhere", tmp_path / "gs2", device="cpu") is None

@@ -66,6 +66,43 @@ def assert_state_close(js, ts, tol: dict):
                                    atol=atol, rtol=rtol, err_msg=field)
 
 
+def splat_scene(n, seed=0, scale=0.03):
+    """Random gaussians (numpy) with SH degree 3 and anisotropic scales, and
+    a view matrix at z = -2 (tests/test_gaussians.py's tiled scene)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    p = {
+        "xyz": rng.uniform(-0.6, 0.6, (n, 3)),
+        "f_dc": rng.normal(0.0, 0.5, (n, 1, 3)),
+        "f_rest": rng.normal(0.0, 0.2, (n, 15, 3)),
+        "scaling": np.log(scale) + rng.normal(0.0, 0.2, (n, 3)),
+        "rotation": q / np.linalg.norm(q, axis=1, keepdims=True),
+        "opacity": rng.uniform(-1.0, 2.0, (n, 1)),
+    }
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 2.0
+    return {k: v.astype(np.float32) for k, v in p.items()}, vm
+
+
+def underflow_scene():
+    """60 random gaussians plus 40 opaque ones stacked along the view axis
+    over one tile at 64x64: there T falls below float32's range (0 from the
+    ~23rd splat on).  Returns (params, viewmat) as numpy."""
+    p, vm = splat_scene(60, seed=5)
+    rng = np.random.default_rng(6)
+    k = 40
+    stack = {
+        "xyz": np.column_stack([0.05 + 0.01 * rng.normal(size=k),
+                                0.05 + 0.01 * rng.normal(size=k), np.linspace(-0.3, 0.3, k)]),
+        "f_dc": rng.normal(0.0, 0.5, (k, 1, 3)),
+        "f_rest": rng.normal(0.0, 0.2, (k, 15, 3)),
+        "scaling": np.full((k, 3), np.log(0.04)) + rng.normal(0.0, 0.1, (k, 3)),
+        "rotation": np.tile([1.0, 0.0, 0.0, 0.0], (k, 1)),
+        "opacity": np.full((k, 1), 6.0),      # sigmoid 0.9975: clamped to 0.99 at the centre
+    }
+    return {kk: np.concatenate([p[kk], stack[kk].astype(np.float32)]) for kk in p}, vm
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or skip: these tests run the hand-written kernels."""
