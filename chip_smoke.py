@@ -7,10 +7,15 @@ at full width.
 
 Phases (any failure exits non-zero):
   1. device   — a CUDA device is required; prints nvidia-smi's name/power limit
-  2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream}.cu for
-                sm_90a, one nvcc per source, started together
+  2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream,
+                fused_substep}.cu for sm_90a, one nvcc per source, started
+                together
   3. kernels  — P2G / G2P kernels vs their plain versions on the card at the
-                slice's shapes (100k particles, n_grid 50); the tile blend
+                slice's shapes (100k particles, n_grid 50); the fused substep
+                (B6) vs its plain version on a mixed-material state at the
+                same shapes (ids 0, 1, 2, 3, 5, 6, yielding, damaged,
+                inactive and off-face particles); a torch.profiler count of
+                launches per substep, unfused and fused; the tile blend
                 (B3, tile_cap 512) and its backward (B4, tile_cap 1024, a
                 seeded cotangent) vs their plain versions at the render's
                 shapes (~100k seeded gaussians at 800x800, the tree config's
@@ -31,10 +36,18 @@ Phases (any failure exits non-zero):
                 (b) GS mode: the checkpoint phase 4 trained (its capture's
                     cameras as cameras.json) -> 3 frames x 400 substeps,
                     each frame rendered to PNG + gaussian PLY;
+                (c) the fused path (fused=True, PIXIE_FUSED=1's solver):
+                    GS mode 3 frames and point-cloud mode 2 frames; frame 0
+                    holds the impulse and runs unfused, every later frame
+                    1 P2G + 399 fused substeps + 1 G2P; fused and unfused
+                    GS frames agree in x after frame 1;
                 each path's kernel launch counts must equal its substeps
                 (and, in GS mode, its frames)
-The line before the last is the kernel JSON; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX or pixie_tpu.
+The line before the last is the kernel JSON (with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its float32 operations over
+67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs);
+the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
+pixie_tpu.
 """
 
 from __future__ import annotations
@@ -58,7 +71,7 @@ N_VIEWS, TRAIN_ITERS = 12, 300
 # threshold, converted to pixels at 800 px, is 2e-4 / 400
 TRAIN_CFG = dict(densify_from=100, densify_interval=100, densify_until=300,
                  opacity_reset_interval=250, densify_grad_threshold=2e-4 / (RES / 2))
-KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward")
+KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward", "fused_substep")
 # stated tolerances of phase 3, relative to the largest |value| of the plain
 # result: P2G sums ~170 float atomics per node in run-dependent order; G2P
 # sums 27 terms in a fixed order but contracts multiply-adds (FMA) where the
@@ -71,6 +84,35 @@ BLEND_ATOL = 1e-4
 # float atomics across tiles in run-dependent order, and the sequential
 # transmittance product against the plain version's log-domain chunks
 BWD_RTOL = 1e-5
+# B6 against its plain version: x, v, C, F_trial, cov and the grid to 1e-5 of
+# each field's largest |value| (as P2G / G2P).  F, stress, mu, lam and the
+# yield stress to JAX's fused-vs-two-kernel criterion
+# (tests/test_fast_solver.py:282-294): 90 % within the float32 ULP floor
+# 6 * 1.2e-7 * scale (scale E for stress, the field's largest |value|
+# otherwise), all within 100 times it: stress = 2 mu (F - R) F^T with F near
+# I amplifies last-ulp differences of F, and the kernel contracts
+# multiply-adds where the plain version rounds each op.
+FUSED_RTOL, ULP_FLOOR, ULP_SHARE, ULP_MAX = 1e-5, 6 * 1.2e-7, 0.9, 100.0
+# fused vs unfused GS rollout, max |dx| after frame 1 in cells: the two run
+# the same substeps and differ by float32 rounding alone (atomic order, FMA
+# contraction, 3x3 products summed in another order), which stays orders of
+# magnitude below a cell; a tenth of a cell would mean particles took other
+# branches or other forces, i.e. a fault.  The mean is held to 1e-3 cell.
+FUSED_DX_MAX, FUSED_DX_MEAN = 0.1, 1e-3
+# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, float32
+# operations/s outside the tensor cores
+HBM_BPS, F32_OPS = 3.35e12, 67e12
+# float32 operations a particle, counted from the kernels' source (an FMA is
+# 2): the B-spline stencil of one position 48; G2P 27 nodes x 56 + advect and
+# F_trial 78; cov transport 63; P2G 27 nodes x 64 (4 atomics included) + RPIC
+# damping and -vol dt stress 54; svd3 1292 (15 Jacobi rotations x 73 + F^T F,
+# sorting, Gram-Schmidt, F V, det); a return map 120; the stresses with det
+# and symmetrization
+G2P_OPS, COV_OPS, P2G_OPS, SVD3_OPS, RETURN_MAP_OPS = 1638, 63, 1830, 1292, 120
+STRESS_OPS = {0: 155, 1: 134, 2: 134, 3: 134, 5: 155, 6: 38}   # others: 18
+# a (pixel, splat) pair of the blend: offsets, conic power, exp, alpha and its
+# gate (16), as every pair evaluates them; the blend of a hit is not counted
+BLEND_PAIR_OPS = 16
 
 
 def fail(msg: str) -> None:
@@ -95,19 +137,34 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3, setup=None) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the float32 operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / F32_OPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def _reset_counts() -> None:
-    from pixie_tpu_torch.ops import gs_stream, transfer
+    from pixie_tpu_torch.ops import fused_substep, gs_stream, transfer
 
     transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = 0
     gs_stream.BLEND_LAUNCHES = gs_stream.BLEND_BWD_LAUNCHES = 0
+    fused_substep.FUSED_LAUNCHES = 0
 
 
 def _read_counts() -> dict:
-    from pixie_tpu_torch.ops import gs_stream, transfer
+    from pixie_tpu_torch.ops import fused_substep, gs_stream, transfer
 
     return {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
             "gs_blend": gs_stream.BLEND_LAUNCHES,
-            "gs_blend_backward": gs_stream.BLEND_BWD_LAUNCHES}
+            "gs_blend_backward": gs_stream.BLEND_BWD_LAUNCHES,
+            "fused_substep": fused_substep.FUSED_LAUNCHES}
+
+
+def _counts(**kw) -> dict:
+    """A launch-count dict with every kernel, zero unless given."""
+    return {k: kw.get(k, 0) for k in KERNELS}
 
 
 def phase_device():
@@ -115,7 +172,7 @@ def phase_device():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
-    for src in ("transfer.cu", "gs_stream.cu"):
+    for src in ("transfer.cu", "gs_stream.cu", "fused_substep.cu", "mpm.cuh"):
         if not (HERE / "pixie_tpu_torch" / "csrc" / src).exists():
             fail(f"pixie_tpu_torch sources not found beside {Path(__file__).name}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -135,15 +192,20 @@ def phase_device():
             print(f"module {mod}: absent")
 
 
+LIBRARIES = ("transfer", "gs_stream", "fused_substep")
+
+
 def phase_build():
-    from pixie_tpu_torch.ops import build, gs_stream, transfer
+    from pixie_tpu_torch.ops import build, fused_substep, gs_stream, transfer
 
     t0 = time.time()
-    build.load_libraries("transfer", "gs_stream")  # one nvcc per source, both at once
+    build.load_libraries(*LIBRARIES)  # one nvcc per source, all at once
     transfer.build()
     gs_stream.build()
-    print(f"build: transfer.cu, gs_stream.cu in {time.time() - t0:.2f} s", flush=True)
-    for name in ("transfer", "gs_stream"):
+    fused_substep.build()
+    print(f"build: {', '.join(n + '.cu' for n in LIBRARIES)} in {time.time() - t0:.2f} s",
+          flush=True)
+    for name in LIBRARIES:
         print(f"  {name}.cu -> {build.library_path(name).name}")
         for line in build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -223,10 +285,212 @@ def phase_kernels(dev):
                 cuda_ms(lambda s: transfer.g2p_plain(s, grid_v, cfg, DT),
                         setup=lambda: (fresh(),))),
     }
+    # bytes: each input read once, each output written once (particles with
+    # selection == 0 only; the flags of all)
+    n, act, g3 = N_PARTICLES, int((st.selection == 0).sum()), N_GRID ** 3
+    cov = 48 * cfg.update_cov_with_F
+    bounds = {"p2g": bound(act * (12 + 12 + 36 + 36 + 4 + 4) + n + g3 * 16, act * P2G_OPS),
+              "g2p": bound(act * (12 + 36 + 12 + 12 + 36 + 36 + cov) + 4 * n + g3 * 12,
+                           act * (G2P_OPS + COV_OPS * cfg.update_cov_with_F))}
+    rows = {}
     for name, (k_ms, p_ms) in timings.items():
-        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(median of 30 CUDA-event timings, {N_PARTICLES} particles, n_grid {N_GRID})")
-    return {"p2g": (p2g_err, *timings["p2g"]), "g2p": (g2p_err, *timings["g2p"])}
+        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}) (median of 30 "
+              f"CUDA-event timings, {N_PARTICLES} particles, n_grid {N_GRID})")
+        rows[name] = {"max_abs_err": p2g_err if name == "p2g" else g2p_err, "ms": k_ms,
+                      "plain_ms": p_ms, **bounds[name], "library_ms": None}
+    return rows
+
+
+FUSED_MATS = (0, 1, 2, 3, 5, 6)
+
+
+def _fused_state(dev, n: int = N_PARTICLES, n_grid: int = N_GRID):
+    """Seeded mixed-material state for B6 at the slice's shapes, and the
+    velocity grid its plain P2G gives: ids 0, 1, 2, 3, 5, 6 in turn; F = F_trial
+    = I + 0.01 noise, so sand both expands and compacts; yield stresses of
+    1e3..1e5 Pa at E 9e6, so von Mises and snow yield, every 8th near 0, so
+    snow damages; every 13th particle inactive; the first and last 500 within
+    a cell of the low and high grid faces, so their stencils hang off the grid;
+    update_cov_with_F on, rpic_damping 0.1, hardening on."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch.ops import transfer
+    from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
+    from pixie_tpu_torch.sim.solver import grid_momentum_to_velocity
+    from pixie_tpu_torch.sim.types import MPMConfig, finalize_mu_lam, make_state
+
+    rng = np.random.default_rng(4)
+    dx = GRID_LIM / n_grid
+    x = rng.uniform(0.25 * GRID_LIM, 0.75 * GRID_LIM, (n, 3))
+    x[:500] = rng.uniform(0.0, dx, (500, 3))
+    x[-500:] = GRID_LIM - rng.uniform(0.0, dx, (500, 3))
+    ys = rng.uniform(1e3, 1e5, n)
+    ys[::8] = 1e-3
+    st = finalize_mu_lam(make_state(
+        x.astype(np.float32), np.full(n, 1.0 / n, np.float32), density=600.0, E=9e6, nu=0.33,
+        material=np.asarray(FUSED_MATS, np.int32)[np.arange(n) % len(FUSED_MATS)],
+        yield_stress=ys.astype(np.float32), device=dev))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    f = t(np.eye(3) + 0.01 * rng.normal(size=(n, 3, 3)))
+    st = st.replace(v=t(rng.normal(size=(n, 3))), C=t(0.1 * rng.normal(size=(n, 3, 3))),
+                    F=f, F_trial=f.clone(), cov=t(1e-3 * rng.normal(size=(n, 6))),
+                    selection=torch.as_tensor((np.arange(n) % 13 == 6).astype(np.int32),
+                                              device=dev))
+    cfg = MPMConfig(n_grid=n_grid, grid_lim=GRID_LIM, rpic_damping=0.1, update_cov_with_F=True,
+                    gravity=(0.0, 0.0, -9.8), active_materials=FUSED_MATS, hardening=1.0,
+                    xi=0.1, plastic_viscosity=0.1, softening=0.5, friction_angle=30.0)
+    # the stress of the F given, for the velocity grid; F, mu and the yield
+    # stress stay as given, so the substep itself returns them
+    st = st.replace(stress=compute_stress_from_F_trial(st, cfg, DT).stress)
+    grid = transfer.p2g_plain(st.x, st.v, st.C, st.stress, st.mass, st.vol, st.selection == 0,
+                              cfg, DT)
+    return st, cfg, grid_momentum_to_velocity(grid, cfg, DT).contiguous()
+
+
+def _branches(st, mu_in):
+    """Return-map branch per particle, read from a substep's outputs: 1 if F
+    left F_trial (yield, or sand off its elastic branch), + 2 if the rotation
+    of sand's expansion (det F = 1), + 4 if snow damaged (mu fell to 0)."""
+    import torch
+
+    from pixie_tpu_torch.sim.svd3 import det3
+
+    moved = (st.F != st.F_trial).flatten(1).any(1)
+    expand = moved & (st.material == 2) & ((det3(st.F) - 1.0).abs() < 1e-5)
+    damaged = (st.mu == 0) & (mu_in != 0)
+    return moved.to(torch.int32) + 2 * expand.to(torch.int32) + 4 * damaged.to(torch.int32)
+
+
+def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
+    """B6 against fused_substep_plain on one substep of _fused_state."""
+    import torch
+
+    from pixie_tpu_torch.ops import build
+    from pixie_tpu_torch.ops import fused_substep as fs
+
+    st, cfg, grid_v = _fused_state(dev, n, n_grid)
+    active = st.selection == 0
+
+    def fresh():
+        return st.replace(**{k: getattr(st, k).clone() for k in fs.UPDATED_FIELDS})
+
+    out_k, out_p = fresh(), fresh()
+    grid_k = fs.fused_substep(out_k, grid_v, cfg, DT, active)
+    grid_p = fs.fused_substep_plain(out_p, grid_v, cfg, DT, active)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k in ("x", "v", "C", "F_trial", "cov", "grid"):
+        got, ref = (grid_k, grid_p) if k == "grid" else (getattr(out_k, k), getattr(out_p, k))
+        e, tol = float((got - ref).abs().max()), FUSED_RTOL * float(ref.abs().max())
+        print(f"fused_substep {k}: max_abs_err {e:.3e} (tol {tol:.3e})")
+        if not e <= tol:
+            fail(f"fused_substep kernel disagrees with its plain version on {k}")
+        err = max(err, e)
+    for k in ("F", "stress", "mu", "lam", "yield_stress"):
+        got, ref = getattr(out_k, k), getattr(out_p, k)
+        scale = 9e6 if k == "stress" else float(ref.abs().max())
+        floor = ULP_FLOOR * scale
+        diff = (got - ref).abs()
+        share, worst = float((diff <= floor).float().mean()), float(diff.max())
+        print(f"fused_substep {k}: {share:.5f} of entries within the ULP floor {floor:.3e}, "
+              f"max_abs_err {worst:.3e} (tol: share >= {ULP_SHARE}, max <= "
+              f"{ULP_MAX * floor:.3e})")
+        if not (share >= ULP_SHARE and worst <= ULP_MAX * floor):
+            fail(f"fused_substep kernel disagrees with its plain version on {k}")
+    bk, bp = _branches(out_k, st.mu), _branches(out_p, st.mu)
+    counts = {c: int((bp == c).sum()) for c in (1, 3, 5)}
+    print(f"fused_substep: return-map branch differs for {float((bk != bp).float().mean()):.3e} "
+          f"of particles ({int((bk != bp).sum())}); plain version's branches: yielded "
+          f"{counts[1]}, sand expanded {counts[3]}, snow damaged {counts[5]}")
+    if not all(counts.values()):
+        fail("the fused state did not take every return-map branch")
+    if not all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in fs.UPDATED_FIELDS):
+        fail("non-finite fused_substep output")
+
+    k_ms = cuda_ms(lambda s: fs.fused_substep(s, grid_v, cfg, DT, active), setup=lambda: (fresh(),))
+    p_ms = cuda_ms(lambda s: fs.fused_substep_plain(s, grid_v, cfg, DT, active),
+                   setup=lambda: (fresh(),), reps=10)
+    mat = st.material[active]
+    n_act = int(active.sum())
+    counts = {m: int((mat == m).sum()) for m in range(8)}
+    n_bytes = (n_act * (12 + 36 + 12 + 12 + 48 * cfg.update_cov_with_F  # x, F, mu lam ys, mass vol mat
+                        + 12 + 12 + 36 + 36 + 36 + 36 + 12)           # x v C F_trial F stress mu lam ys
+               + 4 * counts[6] + n + n_grid ** 3 * (12 + 16))         # bulk (water), flags, grids
+    n_ops = sum(c * (G2P_OPS + COV_OPS * cfg.update_cov_with_F + P2G_OPS + STRESS_OPS.get(m, 18)
+                     + SVD3_OPS * (m in (0, 1, 2, 3, 5))
+                     + (SVD3_OPS + RETURN_MAP_OPS) * (m in (1, 2, 3, 5)))
+                for m, c in counts.items())
+    b = bound(n_bytes, n_ops)
+    print(f"fused_substep: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 / 10 "
+          f"CUDA-event timings, {n} particles, {n_act} active, n_grid {n_grid}); bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {n_bytes / 1e6:.2f} MB, "
+          f"{n_ops / 1e6:.1f} Mflop)", flush=True)
+    for line in build.BUILD_LOG.get("fused_substep", "(cached build: no ptxas report)").splitlines():
+        if "registers" in line or "spill" in line or "cached" in line:
+            print(f"fused_substep ptxas: {line.strip()}")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}
+
+
+def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
+                  substeps: dict | None = None) -> None:
+    """torch.profiler over frames of _fused_state with a sticky ground
+    collider, unfused (simulate_substeps) and fused (simulate_substeps_fused):
+    kernel launches, device kernels, device time and wall time a substep, as
+    the difference between a frame of substeps[path] substeps (20 unfused,
+    a whole frame of 400 fused) and a frame of 1, so the fused frame's
+    prologue and epilogue (the plain constitutive pass, once a frame) are
+    reported apart.  Wall times are the best of 3 synchronized runs, all
+    taken before the first profiler session; a frame of 1 substep varies by
+    several ms on the host's clock, which the long frames dilute."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixie_tpu_torch.ops import fused_substep as fs
+    from pixie_tpu_torch.sim import bc as bc_mod
+    from pixie_tpu_torch.sim.solver import simulate_substeps, simulate_substeps_fused
+
+    st, cfg, _ = _fused_state(dev, n, n_grid)
+    bcs = (bc_mod.make_surface_collider((1.0, 1.0, 0.3), (0.0, 0.0, 1.0), "sticky",
+                                        device=dev),)
+    runs = {"unfused": simulate_substeps, "fused": simulate_substeps_fused}
+    substeps = substeps or {"unfused": 20, "fused": 400}
+
+    def go(name, k):
+        s = st.replace(**{f: getattr(st, f).clone() for f in fs.UPDATED_FIELDS})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name](s, cfg, bcs, 0.0, DT, k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    cases = [(name, k) for name in runs for k in (1, substeps[name])]
+    walls = {}
+    for case in cases:
+        go(*case)  # warm-up
+        walls[case] = min(go(*case) for _ in range(3))
+    counts = {}
+    for case in cases:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            go(*case)
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                        "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+        counts[case] = (len(kernels), launches, sum(e.time_range.elapsed_us() for e in kernels))
+    for name, k in substeps.items():
+        one, full = (walls[(name, 1)], *counts[(name, 1)]), (walls[(name, k)], *counts[(name, k)])
+        wall, n_kern, n_launch, dev_us = ((f - o) / (k - 1) for f, o in zip(full, one))
+        print(f"profile {name}, {n} particles, a substep (frame of {k} less frame of 1): "
+              f"{1.0 / wall:.2f} substeps/s, {wall * 1e3:.3f} ms wall, {n_kern:.1f} device "
+              f"kernels, {n_launch:.1f} kernel launches, device time {dev_us / 1e3:.3f} ms, "
+              f"device idle {1.0 - dev_us * 1e-6 / wall:.3f} of the wall; a frame of 1 substep: "
+              f"{one[0] * 1e3:.3f} ms wall, {one[1]} device kernels, {one[2]} launches, device "
+              f"time {one[3] / 1e3:.3f} ms", flush=True)
 
 
 def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES, n_cams: int = 5):
@@ -299,9 +563,21 @@ def phase_blend(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES):
         fail("the blend scene is nearly transparent: nothing was tested")
     k_ms, p_ms = cuda_ms(lambda: gs_stream.blend(*args)), cuda_ms(
         lambda: gs_stream.blend_plain(*args))
+    b = _blend_bound(bins, res, outputs=res * res * 16, walks=1)
     print(f"gs_blend: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 CUDA-event "
-          f"timings, {res}x{res}, tile_cap 512)", flush=True)
-    return err, k_ms, p_ms
+          f"timings, {res}x{res}, tile_cap 512); bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})", flush=True)
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}
+
+
+def _blend_bound(bins, res: int, outputs: int, walks: int) -> dict:
+    """Bound of a tile blend over these bins: feat, idx, starts, counts and the
+    per-pixel inputs read once, `outputs` bytes written; BLEND_PAIR_OPS for
+    each (pixel, entry) pair a walk visits, 256 pixels a tile."""
+    n_pairs = 256 * int(bins.counts.sum())
+    n_bytes = (4 * bins.feat.numel() + 4 * bins.idx.numel() + 8 * bins.starts.numel()
+               + outputs)
+    return bound(n_bytes, walks * BLEND_PAIR_OPS * n_pairs)
 
 
 def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
@@ -348,10 +624,14 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
         fail("gs blend backward kernel disagrees with its plain version")
     k_ms = cuda_ms(lambda: gs_stream.blend_backward(*args))
     p_ms = cuda_ms(lambda: gs_stream.blend_backward_plain(*args), reps=5, warmup=1)
+    # reads d img and d trans (16 B a pixel), writes d feat
+    b = _blend_bound(bins, res, outputs=res * res * 16 + 4 * bins.feat.numel(), walks=2)
     print(f"gs_blend_backward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 / 5 "
-          f"CUDA-event timings); peak device memory above the inputs: kernel "
-          f"{peaks[0]:.1f} MiB, plain {peaks[1]:.1f} MiB", flush=True)
-    return float(err.max()), k_ms, p_ms
+          f"CUDA-event timings); bound {b['bound_ms']:.4f} ms ({b['bound_by']}); peak device "
+          f"memory above the inputs: kernel {peaks[0]:.1f} MiB, plain {peaks[1]:.1f} MiB",
+          flush=True)
+    return {"max_abs_err": float(err.max()), "ms": k_ms, "plain_ms": p_ms, **b,
+            "library_ms": None}
 
 
 def phase_train(dev, root: Path, n_gaussians: int = N_GAUSSIANS, res: int = RES,
@@ -431,8 +711,7 @@ def phase_train(dev, root: Path, n_gaussians: int = N_GAUSSIANS, res: int = RES,
           f"launches {launches} for {iters} steps + {n_views} PSNR renders", flush=True)
     if not steps[-1][2] < steps[0][2]:
         fail("training loss did not fall")
-    if launches != {"p2g": 0, "g2p": 0, "gs_blend": iters + n_views,
-                    "gs_blend_backward": iters}:
+    if launches != _counts(gs_blend=iters + n_views, gs_blend_backward=iters):
         fail(f"training launches {launches} != {iters} steps + {n_views} renders")
     if not all(bool(torch.isfinite(v).all()) for v in final.values()) or not np.isfinite(
             metrics["psnr_mean"]):
@@ -483,10 +762,10 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
     each path's launches."""
     import numpy as np
     import torch
-    from PIL import Image
 
     from pixie_tpu_torch import pipeline
     from pixie_tpu_torch.recon.gaussians import load_gaussian_ply
+    from pixie_tpu_torch.sim.params import decode_param_json
     from pixie_tpu_torch.train.inference import CombinedInference, load_params
     from pixie_tpu_torch.utils.io import read_ply
 
@@ -546,8 +825,7 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
               f"substeps, materials {info['active_materials']}, "
               f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
               f"{info['median_frame_s']:.3f} s; launches {pc_launches}", flush=True)
-        if pc_launches != {"p2g": substeps, "g2p": substeps, "gs_blend": 0,
-                           "gs_blend_backward": 0}:
+        if pc_launches != _counts(p2g=substeps, g2p=substeps):
             fail(f"point-cloud launches {pc_launches} != substeps run {substeps}")
         frames = sorted((sim_out / "ply_files").glob("frame_*.ply"))
         if len(frames) != 1:
@@ -574,29 +852,98 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
               f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
               f"{info['median_frame_s']:.3f} s, median render {info['median_render_ms']:.1f} ms "
               f"(render + PNG + PLY); launches {launches}", flush=True)
-        if launches != {"p2g": substeps, "g2p": substeps, "gs_blend": n_frames,
-                        "gs_blend_backward": 0}:
+        if launches != _counts(p2g=substeps, g2p=substeps, gs_blend=n_frames):
             fail(f"GS launches {launches} != {substeps} substeps, {n_frames} frames")
-        pngs = sorted((gs_out / "frames").glob("*.png"))
-        if [p.name for p in pngs] != [f"{i:05d}.png" for i in range(n_frames)]:
-            fail(f"frames {[p.name for p in pngs]}")
-        for p in pngs:
-            img = np.asarray(Image.open(p))
-            lit = float((img.max(-1) > 16).mean())
-            print(f"  {p.name}: {img.shape}, mean {img.mean():.2f}, lit share {lit:.3f}")
-            if img.shape != (res, res, 3) or lit < 0.02 or img.std() < 5.0:
-                fail(f"{p.name}: blank or wrong-sized frame")
-        plys = sorted((gs_out / "ply_files").glob("frame_*.ply"))
-        if [p.name for p in plys] != [f"frame_{i:05d}.ply" for i in range(n_frames)]:
-            fail(f"gaussian PLYs {[p.name for p in plys]}")
-        for p in plys:
-            g = load_gaussian_ply(p)
-            if len(g["xyz"]) != info["n_particles"] or not all(
-                    bool(torch.isfinite(a).all()) for a in g.values()):
-                fail(f"{p.name}: non-finite or missing gaussians")
-        if not info["final_state_finite"]:
-            fail("non-finite positions after the last GS substep")
-        return {"point_cloud": pc_launches, "gs": launches}
+        _check_gs_run(gs_out, info, n_frames, res)
+
+        # (c) the fused path: fused frames wherever no particle BC is active
+        _reset_counts()
+        gs_fused = root / "sim_gs_fused"
+        info_f = pipeline.run_physics_simulation(ply, tree_cfg, gs_fused, n_frames=n_frames,
+                                                 debug=True, gaussian_checkpoint=gs_dir,
+                                                 render_img=True, device=dev, fused=True)
+        launches_f = _read_counts()
+        _check_fused_launches("GS", info_f, launches_f, n_frames, gs_blend=n_frames)
+        _check_gs_run(gs_fused, info_f, n_frames, res)
+        mp = decode_param_json(tree_cfg)[0]
+        dx_world = mp["grid_lim"] / mp["n_grid"] / info_f["scale_origin"]
+        for i in range(1, n_frames):
+            name = f"frame_{i:05d}.ply"
+            d = ((load_gaussian_ply(gs_out / "ply_files" / name)["xyz"]
+                  - load_gaussian_ply(gs_fused / "ply_files" / name)["xyz"]).norm(dim=1)
+                 / dx_world)
+            how = ("fused against unfused" if i - 1 in info_f["fused_frames"]
+                   else "unfused in both runs")
+            print(f"fused vs unfused GS rollout, x after frame {i - 1} ({how}): max |dx| "
+                  f"{float(d.max()):.3e} cells, mean {float(d.mean()):.3e} cells (bound "
+                  f"{FUSED_DX_MAX} / {FUSED_DX_MEAN})", flush=True)
+            if not (float(d.max()) <= FUSED_DX_MAX and float(d.mean()) <= FUSED_DX_MEAN):
+                fail(f"fused and unfused GS rollouts diverge after frame {i - 1}")
+
+        _reset_counts()
+        pc_fused = root / "sim_fused"
+        info_pf = pipeline.run_physics_simulation(ply, tree_cfg, pc_fused, n_frames=2, debug=True,
+                                                  device=dev, fused=True)
+        launches_pf = _read_counts()
+        _check_fused_launches("point cloud", info_pf, launches_pf, 2)
+        for p in sorted((pc_fused / "ply_files").glob("frame_*.ply")):
+            v = read_ply(p)["vertex"]
+            if len(v) != info_pf["n_particles"] or not all(np.isfinite(v[k]).all() for k in "xyz"):
+                fail(f"{p.name}: non-finite or missing positions (fused point cloud)")
+        if not info_pf["final_state_finite"]:
+            fail("non-finite positions after the last fused point-cloud substep")
+        return {"point_cloud": pc_launches, "gs": launches, "gs_fused": launches_f,
+                "point_cloud_fused": launches_pf}
+
+
+def _check_gs_run(gs_out: Path, info: dict, n_frames: int, res: int) -> None:
+    """The GS run's frames are lit and of the render's size, its gaussian PLYs
+    finite, and its final state finite."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pixie_tpu_torch.recon.gaussians import load_gaussian_ply
+
+    pngs = sorted((gs_out / "frames").glob("*.png"))
+    if [p.name for p in pngs] != [f"{i:05d}.png" for i in range(n_frames)]:
+        fail(f"frames {[p.name for p in pngs]}")
+    for p in pngs:
+        img = np.asarray(Image.open(p))
+        lit = float((img.max(-1) > 16).mean())
+        print(f"  {gs_out.name}/{p.name}: {img.shape}, mean {img.mean():.2f}, lit share {lit:.3f}")
+        if img.shape != (res, res, 3) or lit < 0.02 or img.std() < 5.0:
+            fail(f"{p.name}: blank or wrong-sized frame")
+    plys = sorted((gs_out / "ply_files").glob("frame_*.ply"))
+    if [p.name for p in plys] != [f"frame_{i:05d}.ply" for i in range(n_frames)]:
+        fail(f"gaussian PLYs {[p.name for p in plys]}")
+    for p in plys:
+        g = load_gaussian_ply(p)
+        if len(g["xyz"]) != info["n_particles"] or not all(
+                bool(torch.isfinite(a).all()) for a in g.values()):
+            fail(f"{p.name}: non-finite or missing gaussians")
+    if not info["final_state_finite"]:
+        fail(f"non-finite positions after the last substep of {gs_out.name}")
+
+
+def _check_fused_launches(mode: str, info: dict, launches: dict, n_frames: int,
+                          gs_blend: int = 0) -> None:
+    """Frame 0 holds the tree config's impulse and runs unfused (S P2G, S
+    G2P); every later frame runs fused (1 P2G, S - 1 fused substeps, 1 G2P)."""
+    s = info["substeps_per_frame"]
+    fused = info["fused_frames"]
+    frame_s = info["frame_s"]
+    want = _counts(p2g=s + (n_frames - 1), g2p=s + (n_frames - 1), gs_blend=gs_blend,
+                   fused_substep=(n_frames - 1) * (s - 1))
+    print(f"mpm ({mode}, fused): {info['n_particles']} particles, {n_frames} frames x {s} "
+          f"substeps, fused frames {fused}; frame 0 (unfused, impulse) {s / frame_s[0]:.2f} "
+          f"substeps/s, fused frames {s / statistics.median(frame_s[1:]):.2f} substeps/s "
+          f"(median); frame seconds {[round(t, 4) for t in frame_s]}; launches {launches}",
+          flush=True)
+    if fused != list(range(1, n_frames)):
+        fail(f"{mode}: fused frames {fused}, expected every frame after the impulse's")
+    if launches != want:
+        fail(f"{mode} fused launches {launches} != {want}")
 
 
 def main() -> int:
@@ -608,6 +955,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     kern = phase_kernels(dev)
+    kern["fused_substep"] = phase_fused(dev)
+    phase_profile(dev)
     kern["gs_blend"] = phase_blend(dev)
     kern["gs_blend_backward"] = phase_blend_backward(dev)
     with tempfile.TemporaryDirectory(prefix="pixie_smoke_train_") as tmp:
@@ -623,11 +972,10 @@ def main() -> int:
             ("p2g", "transfer.cu", "pixie_tpu/ops/transfer.py:361"),
             ("g2p", "transfer.cu", "pixie_tpu/ops/transfer.py:439"),
             ("gs_blend", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:210"),
-            ("gs_blend_backward", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:252")):
-        err, k_ms, p_ms = kern[name]
+            ("gs_blend_backward", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:252"),
+            ("fused_substep", "fused_substep.cu", "pixie_tpu/ops/fused_substep.py:266")):
         rows.append({"name": name, "route": "cuda", "source": f"pixie_tpu_torch/csrc/{src}",
-                     "replaces": replaces, "launches": launches[name], "max_abs_err": err,
-                     "ms": k_ms, "plain_ms": p_ms})
+                     "replaces": replaces, "launches": launches[name], **kern[name]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

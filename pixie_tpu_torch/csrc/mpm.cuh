@@ -1,0 +1,476 @@
+// Per-particle MLS-MPM device math shared by the transfer kernels
+// (transfer.cu) and the fused substep (fused_substep.cu): the quadratic
+// B-spline stencil, Warp's 3x3 SVD and the constitutive models.
+//
+// Every function is a term-for-term port of the package's PyTorch code, so
+// the kernels compute what the plain versions compute:
+//   spline_weights   ops/transfer.py:_spline_weights
+//   svd3             sim/svd3.py:svd3 (cyclic Jacobi on F^T F, sorting
+//                    network, Gram-Schmidt with cross completion, Warp's
+//                    sign convention; every threshold as written there)
+//   return maps and  sim/constitutive.py (von Mises, snow with damage,
+//   stresses         viscoplastic StVK, Drucker-Prager sand; FCR, StVK,
+//                    Drucker-Prager and water Kirchhoff stresses)
+// 3x3 matrices are row-major float[9], as the (N, 3, 3) tensors store them.
+// Every array index is a compile-time constant after unrolling, so the
+// matrices live in registers.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pixie {
+
+// ---------------------------------------------------------------------------
+// Quadratic B-spline stencil.  grid_pos = x * inv_dx is rounded on its own
+// (__fmul_rn) before the "- 0.5": a fused multiply-add there would move
+// floorf() across cell boundaries relative to the plain version.
+// ---------------------------------------------------------------------------
+struct Spline {
+  int base[3];
+  float fx[3];
+  float w[3][3];   // w[axis][offset]
+  float dw[3][3];
+};
+
+__device__ __forceinline__ Spline spline_weights(const float* xp, float inv_dx) {
+  Spline s;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float gp = __fmul_rn(xp[a], inv_dx);
+    const float b = floorf(gp - 0.5f);
+    const float f = gp - b;
+    s.base[a] = static_cast<int>(b);
+    s.fx[a] = f;
+    const float wa = 1.5f - f, wb = f - 1.0f, wc = f - 0.5f;
+    s.w[a][0] = 0.5f * wa * wa;
+    s.w[a][1] = 0.75f - wb * wb;
+    s.w[a][2] = 0.5f * wc * wc;
+    s.dw[a][0] = f - 1.5f;
+    s.dw[a][1] = -2.0f * (f - 1.0f);
+    s.dw[a][2] = f - 0.5f;
+  }
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// 3x3 helpers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float det3(const float* m) {
+  return m[0] * (m[4] * m[8] - m[5] * m[7]) - m[1] * (m[3] * m[8] - m[5] * m[6]) +
+         m[2] * (m[3] * m[7] - m[4] * m[6]);
+}
+
+// out = a @ b^T
+__device__ __forceinline__ void matmul_nt(const float* a, const float* b, float* out) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      out[3 * r + c] = a[3 * r] * b[3 * c] + a[3 * r + 1] * b[3 * c + 1] +
+                       a[3 * r + 2] * b[3 * c + 2];
+}
+
+// out = U diag(s) V^T
+__device__ __forceinline__ void diag_mm_nt(const float* u, const float* s, const float* v,
+                                           float* out) {
+  float us[9];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) us[3 * r + k] = u[3 * r + k] * s[k];
+  matmul_nt(us, v, out);
+}
+
+__device__ __forceinline__ void cross3(const float* a, const float* b, float* out) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float norm3(const float* x) {
+  return sqrtf(x[0] * x[0] + x[1] * x[1] + x[2] * x[2]);
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+constexpr float kSvdEps = 1e-12f;
+
+// x / max(|x|, 1e-12)
+__device__ __forceinline__ void normalize3(const float* x, float* out) {
+  const float n = fmaxf(norm3(x), kSvdEps);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) out[a] = x[a] / n;
+}
+
+// ---------------------------------------------------------------------------
+// svd3: f = U diag(sigma) V^T, U and V proper rotations, sigma descending,
+// sigma[2] carrying sign(det f).
+// ---------------------------------------------------------------------------
+
+// stable symmetric Schur rotation (c, s) annihilating apq (svd3.py:43-54)
+__device__ __forceinline__ void jacobi_rotation(float app, float aqq, float apq, float& c,
+                                                float& s) {
+  const bool trivial = fabsf(apq) < kSvdEps;
+  const float safe_apq = trivial ? 1.0f : apq;
+  const float tau = (aqq - app) / (2.0f * safe_apq);
+  const float sgn = tau > 0.0f ? 1.0f : (tau < 0.0f ? -1.0f : tau);  // torch.sign
+  float t = sgn / (fabsf(tau) + sqrtf(1.0f + tau * tau));
+  if (tau == 0.0f) t = 1.0f;  // tau == 0 -> 45 degree rotation
+  c = 1.0f / sqrtf(1.0f + t * t);
+  s = t * c;
+  if (trivial) {
+    c = 1.0f;
+    s = 0.0f;
+  }
+}
+
+// (G^T S G, V G) for the Givens rotation G in the (P, Q) plane (svd3.py:57-73)
+template <int P, int Q>
+__device__ __forceinline__ void jacobi_step(float* S, float* V) {
+  float c, sn;
+  jacobi_rotation(S[3 * P + P], S[3 * Q + Q], S[3 * P + Q], c, sn);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {  // columns
+    const float sp = S[3 * r + P], sq = S[3 * r + Q];
+    S[3 * r + P] = c * sp - sn * sq;
+    S[3 * r + Q] = sn * sp + c * sq;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {  // rows
+    const float rp = S[3 * P + k], rq = S[3 * Q + k];
+    S[3 * P + k] = c * rp - sn * rq;
+    S[3 * Q + k] = sn * rp + c * rq;
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float vp = V[3 * r + P], vq = V[3 * r + Q];
+    V[3 * r + P] = c * vp - sn * vq;
+    V[3 * r + Q] = sn * vp + c * vq;
+  }
+}
+
+// swap (wa, va) with (wb, vb) where wa < wb (svd3.py:111-115)
+__device__ __forceinline__ void cswap(float& wa, float* va, float& wb, float* vb) {
+  if (wa < wb) {
+    const float tw = wa;
+    wa = wb;
+    wb = tw;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t = va[a];
+      va[a] = vb[a];
+      vb[a] = t;
+    }
+  }
+}
+
+// Completes u0 with the unit vector of cross(u0, e_x), or of cross(u0, e_y)
+// where the first is shorter than 1e-6.
+__device__ __forceinline__ void cross_axis_alt(const float* u0, float* alt) {
+  const float ex[3] = {1.0f, 0.0f, 0.0f}, ey[3] = {0.0f, 1.0f, 0.0f};
+  cross3(u0, ex, alt);
+  if (norm3(alt) < 1e-6f) cross3(u0, ey, alt);
+}
+
+__device__ __forceinline__ void svd3(const float* f, float* u, float* sigma, float* v) {
+  // S = F^T F, V = I; 5 cyclic Jacobi sweeps (svd3.py:76-85)
+  float S[9], V[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      S[3 * i + j] = f[i] * f[j] + f[3 + i] * f[3 + j] + f[6 + i] * f[6 + j];
+      V[3 * i + j] = i == j ? 1.0f : 0.0f;
+    }
+#pragma unroll 1
+  for (int sweep = 0; sweep < 5; ++sweep) {
+    jacobi_step<0, 1>(S, V);
+    jacobi_step<0, 2>(S, V);
+    jacobi_step<1, 2>(S, V);
+  }
+
+  // sort eigenpairs descending
+  float w0 = S[0], w1 = S[4], w2 = S[8];
+  float v0[3] = {V[0], V[3], V[6]}, v1[3] = {V[1], V[4], V[7]}, v2[3] = {V[2], V[5], V[8]};
+  cswap(w0, v0, w1, v1);
+  cswap(w0, v0, w2, v2);
+  cswap(w1, v1, w2, v2);
+
+  // V as a proper rotation: Gram-Schmidt + cross completion (det V = +1)
+  float t[3];
+  normalize3(v0, t);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) v0[a] = t[a];
+  const float d01 = dot3(v1, v0);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) v1[a] = v1[a] - d01 * v0[a];
+  if (norm3(v1) < 1e-6f) {
+    float alt[3];
+    cross_axis_alt(v0, alt);
+    normalize3(alt, v1);
+  } else {
+    normalize3(v1, t);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) v1[a] = t[a];
+  }
+  cross3(v0, v1, v2);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    v[3 * a + 0] = v0[a];
+    v[3 * a + 1] = v1[a];
+    v[3 * a + 2] = v2[a];
+  }
+
+  const float s0 = sqrtf(fmaxf(w0, 0.0f)), s1 = sqrtf(fmaxf(w1, 0.0f)),
+              s2 = sqrtf(fmaxf(w2, 0.0f));
+
+  // U columns: normalize F v_i, orthogonal completion for tiny sigma
+  float fv0[3], fv1[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    fv0[r] = f[3 * r] * v[0] + f[3 * r + 1] * v[3] + f[3 * r + 2] * v[6];
+    fv1[r] = f[3 * r] * v[1] + f[3 * r + 1] * v[4] + f[3 * r + 2] * v[7];
+  }
+  float u0[3], u1[3], u2[3];
+  normalize3(fv0, u0);
+  const float d = dot3(fv1, u0);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) fv1[a] = fv1[a] - d * u0[a];
+  if (norm3(fv1) < 1e-6f * fmaxf(s0, 1e-6f)) {
+    float alt[3];
+    cross_axis_alt(u0, alt);
+    normalize3(alt, u1);
+  } else {
+    normalize3(fv1, u1);
+  }
+  cross3(u0, u1, u2);  // det U = +1
+  if (s0 < 1e-10f) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      u0[a] = a == 0 ? 1.0f : 0.0f;
+      u1[a] = a == 1 ? 1.0f : 0.0f;
+      u2[a] = a == 2 ? 1.0f : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    u[3 * a + 0] = u0[a];
+    u[3 * a + 1] = u1[a];
+    u[3 * a + 2] = u2[a];
+  }
+
+  // sigma[2] carries sign(det F) (Warp's convention)
+  sigma[0] = s0;
+  sigma[1] = s1;
+  sigma[2] = s2 * (det3(f) < 0.0f ? -1.0f : 1.0f);
+}
+
+// ---------------------------------------------------------------------------
+// Return mappings (sim/constitutive.py:58-149).  Each writes the returned F
+// into f_new (F_trial where the particle stays elastic).
+// ---------------------------------------------------------------------------
+
+struct LogStrain {
+  float eps[3];
+  float eps_hat[3];
+  float eps_hat_norm;  // |eps_hat| + 1e-6
+  float cond_norm;     // |dev(tau)| of the Hencky Kirchhoff stress
+};
+
+// the deviatoric Hencky strain and stress that von Mises and snow share
+__device__ __forceinline__ LogStrain von_mises_strain(const float* sig_old, float mu, float lam) {
+  LogStrain r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) r.eps[a] = logf(fmaxf(sig_old[a], 0.01f));
+  const float eps_sum = r.eps[0] + r.eps[1] + r.eps[2];
+  const float temp = eps_sum / 3.0f;
+  float tau[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) tau[a] = 2.0f * mu * r.eps[a] + lam * eps_sum;
+  const float tau_mean = (tau[0] + tau[1] + tau[2]) / 3.0f;
+  float cond[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    cond[a] = tau[a] - tau_mean;
+    r.eps_hat[a] = r.eps[a] - temp;
+  }
+  r.cond_norm = norm3(cond);
+  r.eps_hat_norm = norm3(r.eps_hat) + 1e-6f;
+  return r;
+}
+
+// metal (von_mises_return_mapping, constitutive.py:58-80)
+__device__ __forceinline__ void von_mises(const float* f_trial, const float* u,
+                                          const float* sig_old, const float* v, float mu,
+                                          float lam, float& ys, float hardening, float xi,
+                                          float* f_new) {
+  const LogStrain e = von_mises_strain(sig_old, mu, lam);
+  const bool yielding = e.cond_norm > ys;
+  const float delta_gamma = e.eps_hat_norm - ys / (2.0f * mu);
+  if (!yielding) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) f_new[k] = f_trial[k];
+    return;
+  }
+  const float ratio = delta_gamma / e.eps_hat_norm;
+  float s[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) s[a] = expf(e.eps[a] - ratio * e.eps_hat[a]);
+  diag_mm_nt(u, s, v, f_new);
+  if (hardening == 1.0f) ys = ys + 2.0f * mu * xi * delta_gamma;
+}
+
+// snow (von_mises_return_mapping_with_damage, constitutive.py:83-109): a
+// yield that softens the yield stress to <= 0 takes mu and lam to 0
+__device__ __forceinline__ void snow(const float* f_trial, const float* u, const float* sig_old,
+                                     const float* v, float& mu, float& lam, float& ys,
+                                     float hardening, float xi, float softening, float* f_new) {
+  const LogStrain e = von_mises_strain(sig_old, mu, lam);
+  const bool yielding = e.cond_norm > ys && ys > 0.0f;  // fully damaged -> elastic
+  if (!yielding) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) f_new[k] = f_trial[k];
+    return;
+  }
+  const float delta_gamma = e.eps_hat_norm - ys / (2.0f * mu);
+  const float ratio = delta_gamma / e.eps_hat_norm;
+  float corr[3], s[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    corr[a] = ratio * e.eps_hat[a];
+    s[a] = expf(e.eps[a] - corr[a]);
+  }
+  diag_mm_nt(u, s, v, f_new);
+  const float ys_soft = ys - softening * norm3(corr);
+  if (ys_soft <= 0.0f) {
+    mu = 0.0f;
+    lam = 0.0f;
+  }
+  ys = ys_soft;
+  if (hardening == 1.0f) ys = ys + 2.0f * mu * xi * delta_gamma;
+}
+
+// viscoplastic StVK (viscoplasticity_return_mapping_stvk, constitutive.py:112-131)
+__device__ __forceinline__ void viscoplastic(const float* f_trial, const float* u,
+                                             const float* sig_old, const float* v, float mu,
+                                             float ys, float plastic_viscosity, float dt,
+                                             float* f_new) {
+  constexpr float kSqrt23 = 0.816496580927726f;  // (2/3) ** 0.5
+  float sig[3], eps[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    sig[a] = fmaxf(sig_old[a], 0.01f);
+    eps[a] = logf(sig[a]);
+  }
+  const float trace_eps = eps[0] + eps[1] + eps[2];
+  float s_trial[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) s_trial[a] = 2.0f * mu * (eps[a] - trace_eps / 3.0f);
+  const float s_trial_norm = norm3(s_trial);
+  const float y = s_trial_norm - kSqrt23 * ys;
+  if (!(y > 0.0f)) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) f_new[k] = f_trial[k];
+    return;
+  }
+  const float mu_hat = mu * ((sig[0] * sig[0] + sig[1] * sig[1] + sig[2] * sig[2]) / 3.0f);
+  const float s_new_norm =
+      s_trial_norm - y / (1.0f + plastic_viscosity / (2.0f * fmaxf(mu_hat, 1e-12f) * dt));
+  const float scale = s_new_norm / fmaxf(s_trial_norm, 1e-12f);
+  float s[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) s[a] = expf(scale * s_trial[a] / (2.0f * mu) + trace_eps / 3.0f);
+  diag_mm_nt(u, s, v, f_new);
+}
+
+// Drucker-Prager sand (sand_return_mapping, constitutive.py:134-149):
+// expansion projects to the rotation U V^T, compaction to the yield surface
+__device__ __forceinline__ void sand(const float* f_trial, const float* u, const float* sig,
+                                    const float* v, float mu, float lam, float alpha,
+                                    float* f_new) {
+  float eps[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) eps[a] = logf(fmaxf(fabsf(sig[a]), 1e-14f));
+  const float tr = eps[0] + eps[1] + eps[2];
+  float eps_hat[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) eps_hat[a] = eps[a] - tr / 3.0f;
+  const float eps_hat_norm = norm3(eps_hat);
+  const float delta_gamma =
+      eps_hat_norm + (3.0f * lam + 2.0f * mu) / (2.0f * mu) * tr * alpha;
+  if (delta_gamma <= 0.0f) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) f_new[k] = f_trial[k];
+    return;
+  }
+  if (tr > 0.0f) {
+    matmul_nt(u, v, f_new);
+    return;
+  }
+  const float ratio = delta_gamma / fmaxf(eps_hat_norm, 1e-12f);
+  float s[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) s[a] = expf(eps[a] - eps_hat[a] * ratio);
+  diag_mm_nt(u, s, v, f_new);
+}
+
+// ---------------------------------------------------------------------------
+// Kirchhoff stresses tau = P F^T (constitutive.py:24-53)
+// ---------------------------------------------------------------------------
+
+// fixed corotated: 2 mu (F - R) F^T + lam J (J - 1) I, R = U V^T
+__device__ __forceinline__ void stress_fcr(const float* f, const float* u, const float* v,
+                                           float J, float mu, float lam, float* out) {
+  float r[9], fmr[9], p[9];
+  matmul_nt(u, v, r);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) fmr[k] = f[k] - r[k];
+  matmul_nt(fmr, f, p);
+  const float diag = lam * J * (J - 1.0f);
+#pragma unroll
+  for (int r_ = 0; r_ < 3; ++r_)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      out[3 * r_ + c] = 2.0f * mu * p[3 * r_ + c] + (r_ == c ? diag : 0.0f);
+}
+
+// StVK with Hencky strain: U diag(2 mu eps + lam tr eps) V^T F^T, sigma >= 0.01
+__device__ __forceinline__ void stress_stvk(const float* f, const float* u, const float* sig,
+                                            const float* v, float mu, float lam, float* out) {
+  float eps[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) eps[a] = logf(fmaxf(sig[a], 0.01f));
+  const float log_sum = eps[0] + eps[1] + eps[2];
+  float tau[3], p[9];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) tau[a] = 2.0f * mu * eps[a] + lam * log_sum;
+  diag_mm_nt(u, tau, v, p);
+  matmul_nt(p, f, out);
+}
+
+// Drucker-Prager: U diag((2 mu log sigma + lam tr log sigma) / sigma) V^T F^T
+__device__ __forceinline__ void stress_drucker_prager(const float* f, const float* u,
+                                                      const float* sig, const float* v,
+                                                      float mu, float lam, float* out) {
+  float ls[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) ls[a] = logf(sig[a]);
+  const float log_sum = ls[0] + ls[1] + ls[2];
+  float center[3], p[9];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) center[a] = (2.0f * mu * ls[a] + lam * log_sum) / sig[a];
+  diag_mm_nt(u, center, v, p);
+  matmul_nt(p, f, out);
+}
+
+// weakly compressible water, gamma 1.1: J p I
+__device__ __forceinline__ void stress_water(float J, float bulk, float* out) {
+  const float pressure = -bulk * (powf(fmaxf(J, 1e-6f), -1.1f) - 1.0f);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k] = (k % 4 == 0) ? J * pressure : 0.0f;
+}
+
+}  // namespace pixie

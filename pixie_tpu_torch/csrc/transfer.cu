@@ -6,43 +6,20 @@
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 //
 // The arithmetic follows pixie_tpu/sim/solver.py (p2g :60-128, g2p :171-220)
-// term for term.  grid_pos = x * inv_dx is rounded on its own
-// (__fmul_rn) before the "- 0.5": a fused multiply-add there would move
-// floorf() across cell boundaries relative to jnp.floor.
+// term for term.  The B-spline stencil (spline_weights) is shared with
+// the fused substep through mpm.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mpm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-struct Spline {
-  int base[3];
-  float fx[3];
-  float w[3][3];   // w[axis][offset]
-  float dw[3][3];
-};
-
-__device__ __forceinline__ Spline spline_weights(const float* xp, float inv_dx) {
-  Spline s;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float gp = __fmul_rn(xp[a], inv_dx);
-    const float b = floorf(gp - 0.5f);
-    const float f = gp - b;
-    s.base[a] = static_cast<int>(b);
-    s.fx[a] = f;
-    const float wa = 1.5f - f, wb = f - 1.0f, wc = f - 0.5f;
-    s.w[a][0] = 0.5f * wa * wa;
-    s.w[a][1] = 0.75f - wb * wb;
-    s.w[a][2] = 0.5f * wc * wc;
-    s.dw[a][0] = f - 1.5f;
-    s.dw[a][1] = -2.0f * (f - 1.0f);
-    s.dw[a][2] = f - 0.5f;
-  }
-  return s;
-}
+using pixie::Spline;
+using pixie::spline_weights;
 
 // ---------------------------------------------------------------------------
 // P2G.  Replaces pixie_tpu/ops/transfer.py:p2g_tiled_t (_p2g_kernel_t), and

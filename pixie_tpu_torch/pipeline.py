@@ -11,9 +11,9 @@
 
 The stage functions take explicit arguments (no config tree needed);
 ``main(argv)`` composes the same ``key=value`` overrides as ``pipeline.py``
-through ``pixie_tpu.config`` and runs the three stages.  The Blender render
-stage that writes the capture, field training, the voxelizer and U-Net
-training are not in this port.
+through ``pixie_tpu_torch.config`` (over the shared YAML tree) and runs the
+three stages.  The Blender render stage that writes the capture, field
+training, the voxelizer and U-Net training are not in this port.
 
 Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
 """
@@ -155,11 +155,13 @@ def run_physics_simulation(
     white_bg: bool = False,
     overwrite: bool = False,
     device: str | torch.device = "cuda",
+    fused: bool | None = None,
 ) -> dict | None:
     """MPM rollout of the material PLY's vertices, or of the gaussians of
     ``gaussian_checkpoint`` with the PLY as their material source (rendered
     per frame with ``render_img``); returns sim info, or None when
-    ``sim_info.json`` exists and ``overwrite`` is off."""
+    ``sim_info.json`` exists and ``overwrite`` is off.  ``fused`` selects
+    the fused-substep frames (None: ``PIXIE_FUSED``, default off)."""
     from pixie_tpu_torch.sim.driver import run_simulation  # noqa: PLC0415
 
     output_dir = Path(output_dir)
@@ -172,13 +174,13 @@ def run_physics_simulation(
                           output_dir=output_dir, n_frames=n_frames, save_ply=save_ply,
                           debug=debug, gaussian_checkpoint=gaussian_checkpoint,
                           render_img=render_img, compile_video=compile_video,
-                          white_bg=white_bg, device=device)
+                          white_bg=white_bg, device=device, fused=fused)
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
     """``pipeline.py``'s 3DGS training and neural slice with its
     ``key=value`` overrides."""
-    from pixie_tpu.config import compose  # noqa: PLC0415  (imports only yaml)
+    from pixie_tpu_torch.config import compose  # noqa: PLC0415
     from pixie_tpu_torch.utils.paths import (  # noqa: PLC0415
         create_directories, get_output_paths, resolve_paths,
     )

@@ -59,6 +59,7 @@ def run_simulation(
     checkpoint_every: int = 0,
     resume: bool = False,
     device: str | torch.device = "cuda",
+    fused: bool | None = None,
 ) -> dict:
     """End-to-end rollout; returns timing/diagnostic info.
 
@@ -74,9 +75,13 @@ def run_simulation(
 
     ``use_fast_solver`` is accepted for signature parity: both values run
     the one solver of this package, whose transfers are the CUDA kernels on
-    a CUDA device.  Rollout checkpointing (``checkpoint_every``/``resume``)
-    and internal particle filling are not ported and raise
-    ``NotImplementedError``.
+    a CUDA device.  ``fused`` (None reads ``PIXIE_FUSED``, default off)
+    runs each frame that no particle BC touches as a fused-substep frame
+    (``MPMSolver``); ``fused_frames`` in the info lists those frames,
+    ``frame_s`` every frame's substep time, and ``scale_origin`` the factor
+    from world lengths to MPM lengths.  Rollout checkpointing
+    (``checkpoint_every``/``resume``) and internal particle filling are not
+    ported and raise ``NotImplementedError``.
     """
     if checkpoint_every or resume:
         raise NotImplementedError("rollout checkpoint/resume is not ported yet: "
@@ -130,7 +135,7 @@ def run_simulation(
             particle_volume = 1.0 / max(n, 1)  # uniform estimate, unit cube
         vols = np.full(n, particle_volume, np.float32)
 
-    solver = MPMSolver(device=device)
+    solver = MPMSolver(device=device, fused=fused)
     solver.load_initial_data(pos_mpm, vols, cov=init_cov_mpm,
                              n_grid=material_params["n_grid"],
                              grid_lim=material_params["grid_lim"])
@@ -177,7 +182,7 @@ def run_simulation(
         frames_dir.mkdir(exist_ok=True)
         gs_num = gs_payload["gs_num"]
 
-    frame_times, render_times = [], []
+    frame_times, render_times, fused_frames = [], [], []
     for frame in range(frame_num):
         # render/export the CURRENT state, then step (gs_simulation.py:573-637)
         if renderer is not None:
@@ -204,7 +209,8 @@ def run_simulation(
                 material_id=st.material.cpu().numpy(), conf=conf))
         _sync(device)
         t0 = time.time()
-        solver.step_frame(steps_per_frame, substep_dt)
+        if solver.step_frame(steps_per_frame, substep_dt):
+            fused_frames.append(frame)
         _sync(device)
         frame_times.append(time.time() - t0)
         if frame % 10 == 0:
@@ -222,6 +228,9 @@ def run_simulation(
         "substeps_per_sec": (steps_per_frame / float(np.median(frame_times))
                              if frame_times else None),
         "median_render_ms": float(np.median(render_times)) * 1e3 if render_times else None,
+        "frame_s": frame_times,
+        "fused_frames": fused_frames,
+        "scale_origin": float(scale_origin),
         "active_materials": list(solver.cfg.active_materials),
         "solver": "torch-cuda-kernels" if device.type == "cuda" else "torch-plain",
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"

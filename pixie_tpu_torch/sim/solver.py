@@ -3,7 +3,10 @@
 
 One solver for every device.  Its transfers go through
 ``pixie_tpu_torch.ops.transfer``, which launches the CUDA P2G/G2P kernels on
-CUDA tensors and runs their plain versions on CPU tensors.  The JAX
+CUDA tensors and runs their plain versions on CPU tensors.  With ``fused``
+(``PIXIE_FUSED=1``, default off as in JAX) a frame that no particle BC
+touches runs ``simulate_substeps_fused``: one ``ops.fused_substep`` launch
+per substep, G2P through the next P2G.  The JAX
 package's tile-sorted fast path (solver_fast.py, ops/tiling.py, sim/soa.py,
 constitutive_soa.py) is the TPU's layout of the same math and has no
 counterpart here: ``run_simulation(use_fast_solver=...)`` routes both values
@@ -13,11 +16,13 @@ to this solver.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from pixie_tpu_torch.ops import fused_substep as fs
 from pixie_tpu_torch.ops import transfer
 from pixie_tpu_torch.sim import bc as bc_mod
 from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
@@ -103,6 +108,30 @@ def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     return state
 
 
+def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
+                            n_substeps: int) -> MPMState:
+    """A frame of n_substeps with the substep boundary rotated
+    (pixie_tpu/sim/solver_fast.py:501-590): stress(0) + P2G(0), then per
+    substep s < S-1 the grid stage at t_s and one fused G2P(s) -> stress(s+1)
+    -> P2G(s+1), then the grid stage at t_{S-1} and G2P.  The same operations
+    as ``simulate_substeps`` for a frame without particle BCs, which the
+    caller must drop (they would apply between advect and stress)."""
+    assert not any(isinstance(b, bc_mod.PARTICLE_BC_TYPES) for b in bcs), \
+        "the fused frame takes no particle BCs (use simulate_substeps)"
+    time0, dt = np.float32(time0), np.float32(dt)
+    node_x = node_positions(cfg, state.device) if any(
+        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    state = compute_stress_from_F_trial(state, cfg, dt)
+    grid = p2g(state, cfg, dt)
+    active = state.selection == 0
+    for step in range(n_substeps - 1):
+        t = np.float32(time0 + np.float32(step) * dt)
+        grid_v = grid_update(grid, cfg, dt, t, bcs, node_x)
+        grid = fs.fused_substep(state, grid_v, cfg, dt, active)
+    t = np.float32(time0 + np.float32(n_substeps - 1) * dt)
+    return g2p(state, grid_update(grid, cfg, dt, t, bcs, node_x), cfg, dt)
+
+
 def _unpack_cov(c):
     return torch.stack([torch.stack([c[:, 0], c[:, 1], c[:, 2]], -1),
                         torch.stack([c[:, 1], c[:, 3], c[:, 4]], -1),
@@ -145,10 +174,17 @@ def apply_additional_params(state: MPMState, params: dict) -> MPMState:
 
 
 class MPMSolver:
-    """Object facade with MPM_Simulator_WARP's API (pixie_tpu.sim.solver.MPMSolver)."""
+    """Object facade with MPM_Simulator_WARP's API (pixie_tpu.sim.solver.MPMSolver).
 
-    def __init__(self, n_particles=0, n_grid=100, grid_lim=1.0, device="cuda"):
+    ``fused`` selects the fused-substep frame where no particle BC is active
+    (``FastMPMSolver``'s ``PIXIE_FUSED``); None reads ``PIXIE_FUSED``,
+    default "0"."""
+
+    def __init__(self, n_particles=0, n_grid=100, grid_lim=1.0, device="cuda",
+                 fused: bool | None = None):
         self.device = torch.device(device)
+        self.fused = (os.environ.get("PIXIE_FUSED", "0") == "1" if fused is None
+                      else bool(fused))
         self.cfg = MPMConfig(n_grid=n_grid, grid_lim=grid_lim)
         self.state: MPMState | None = None
         self.bcs: list = []
@@ -271,11 +307,26 @@ class MPMSolver:
                            np.float32(self.time), np.float32(dt))
         self.time += dt
 
-    def step_frame(self, n_substeps: int, dt: float):
-        """Advance one frame of n_substeps."""
-        self.state = simulate_substeps(self.state, self.cfg, tuple(self.bcs),
-                                       self.time, dt, n_substeps)
+    def step_frame(self, n_substeps: int, dt: float) -> bool:
+        """Advance one frame of n_substeps; returns whether it ran fused.
+
+        With ``fused``, the choice is made per frame, as
+        solver_fast.py:787-833 makes it: a frame whose [t0, t1) window a
+        particle BC intersects runs ``simulate_substeps``; any other frame
+        drops its (inactive) particle BCs and runs the fused frame."""
+        t0, t1 = self.time, self.time + n_substeps * dt
+        bc_active = any(isinstance(b, bc_mod.PARTICLE_BC_TYPES)
+                        and b.start_time < t1 and b.end_time > t0 for b in self.bcs)
+        use_fused = self.fused and not bc_active
+        if use_fused:
+            bcs = tuple(b for b in self.bcs if not isinstance(b, bc_mod.PARTICLE_BC_TYPES))
+            self.state = simulate_substeps_fused(self.state, self.cfg, bcs, self.time, dt,
+                                                 n_substeps)
+        else:
+            self.state = simulate_substeps(self.state, self.cfg, tuple(self.bcs),
+                                           self.time, dt, n_substeps)
         self.time += n_substeps * dt
+        return use_fused
 
     # -- exports ---------------------------------------------------------------
     def export_particle_x(self):

@@ -6,18 +6,16 @@ Mirrors pixie/utils.py:296-363 (``resolve_paths`` / ``get_output_paths``):
     render_outputs/{obj_id}            voxel grids + segmentations
     mpm_sim_outputs/{mode}/{obj_id}    simulation frames / ply
 
-Carried over from pixie_tpu/utils/paths.py (host only; reuses
-pixie_tpu.config.core, which imports only yaml, inside resolve_paths).
+Carried over from pixie_tpu/utils/paths.py (host only), with the config
+functions of pixie_tpu_torch.config.core.
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import TYPE_CHECKING
 
-if TYPE_CHECKING:
-    from pixie_tpu.config.core import Config
+from pixie_tpu_torch.config.core import Config, _resolve
 
 
 def resolve_paths(cfg: Config) -> Config:
@@ -28,8 +26,6 @@ def resolve_paths(cfg: Config) -> Config:
         cfg.paths.inference_results_dir = (
             f"inference_combined_mse_{cfg.training.feature_type}_results"
         )
-    from pixie_tpu.config.core import _resolve  # noqa: PLC0415
-
     _resolve(cfg, cfg)
     return cfg
 

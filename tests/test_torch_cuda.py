@@ -11,7 +11,13 @@ log-domain chunked product agrees to atol 1e-4 on colour and T (values in
 [0, 1], up to 512 terms).  The blend backward sums float atomics across
 tiles in run-dependent order: each column of d feat agrees with the plain
 version to 1e-5 of that column's largest |value| (measured 3.5e-7 of it at
-800x800).  This file imports no JAX package module.
+800x800).  The fused substep (B6) is held as chip_smoke.py holds it: x, v,
+C, F_trial, cov and the grid to 1e-5 of each field's largest |value|; F,
+stress, mu, lam and the yield stress to the float32 ULP floor 6 * 1.2e-7 *
+scale (scale E for stress, the field's largest |value| otherwise), 90 % of
+entries within it and all within 100 times it (JAX's fused-vs-two-kernel
+criterion, tests/test_fast_solver.py:282-294).  This file imports no JAX
+package module.
 """
 
 import numpy as np
@@ -22,6 +28,7 @@ from torch_parity import (  # noqa: F401  (fixture)
     cuda_device, random_particles, to_np, underflow_scene,
 )
 
+from pixie_tpu_torch.ops import fused_substep as fs
 from pixie_tpu_torch.ops import gs_stream, transfer
 from pixie_tpu_torch.recon import rasterizer as R
 from pixie_tpu_torch.sim.types import MPMConfig, finalize_mu_lam, make_state
@@ -252,3 +259,90 @@ def test_blend_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda_devic
         gs_stream.blend_backward(*args, bins.tx_n, 0.0, di, dt.cpu())
     with pytest.raises(TypeError):
         gs_stream.blend_backward(*args, bins.tx_n, 0.0, di.double(), dt)
+
+
+def _fused_case(mats, update_cov, n=4096, seed=7):
+    """The 4096-particle state of _state with F = F_trial near I, the given
+    material ids in turn, low yield stresses (every 8th near 0: snow damages)
+    and a random velocity grid."""
+    st = _state(n=n, seed=seed)
+    rng = np.random.default_rng(seed + 2)
+    ys = rng.uniform(10.0, 500.0, n).astype(np.float32)
+    ys[::8] = 1e-3
+    st = st.replace(material=torch.as_tensor(np.asarray(mats, np.int32)[np.arange(n) % len(mats)]),
+                    yield_stress=torch.as_tensor(ys), F_trial=st.F.clone())
+    cfg = MPMConfig(n_grid=24, grid_lim=2.0, update_cov_with_F=update_cov, rpic_damping=0.1,
+                    active_materials=tuple(sorted(set(mats))), hardening=1.0, xi=0.1,
+                    plastic_viscosity=0.1, softening=0.5)
+    grid_v = torch.as_tensor(rng.normal(size=(24, 24, 24, 3)).astype(np.float32))
+    return st, cfg, grid_v
+
+
+def _fused_both(st, cfg, grid_v, dev):
+    want = _to(st, "cpu", fs.UPDATED_FIELDS)
+    grid_want = fs.fused_substep_plain(want, grid_v, cfg, DT, want.selection == 0)
+    got = _to(st, dev, fs.UPDATED_FIELDS + ("mass", "vol", "material", "bulk", "selection"))
+    before = fs.FUSED_LAUNCHES
+    grid_got = fs.fused_substep(got, grid_v.to(dev), cfg, DT, got.selection == 0)
+    assert fs.FUSED_LAUNCHES == before + 1
+    return got, grid_got, want, grid_want
+
+
+def _assert_fused_close(got, grid_got, want, grid_want, E=1e5):
+    for k in ("x", "v", "C", "F_trial", "cov", "grid"):
+        g, w = (grid_got, grid_want) if k == "grid" else (getattr(got, k), getattr(want, k))
+        w = to_np(w)
+        np.testing.assert_allclose(to_np(g), w, rtol=0, atol=1e-5 * np.abs(w).max(), err_msg=k)
+    for k in ("F", "stress", "mu", "lam", "yield_stress"):
+        g, w = to_np(getattr(got, k)), to_np(getattr(want, k))
+        floor = 6 * 1.2e-7 * (E if k == "stress" else max(float(np.abs(w).max()), 1e-30))
+        diff = np.abs(g - w)
+        assert (diff <= floor).mean() >= 0.9, k
+        assert diff.max() <= 100 * floor, k
+
+
+@pytest.mark.parametrize("update_cov", [False, True])
+@pytest.mark.parametrize("mats", [(0,), (1,), (2,), (3,), (4,), (5,), (6,), (7,),
+                                  (0, 1, 2, 3, 5, 6)])
+def test_fused_substep_kernel_matches_plain(cuda_device, mats, update_cov):
+    st, cfg, grid_v = _fused_case(mats, update_cov)
+    got, grid_got, want, grid_want = _fused_both(st, cfg, grid_v, cuda_device)
+    _assert_fused_close(got, grid_got, want, grid_want)
+    inactive = to_np(st.selection) != 0
+    for k in fs.UPDATED_FIELDS:  # inactive particles keep every field
+        np.testing.assert_array_equal(to_np(getattr(got, k))[inactive],
+                                      to_np(getattr(st, k))[inactive], err_msg=k)
+
+
+def test_fused_frame_on_cuda_launches_once_a_substep(cuda_device):
+    """simulate_substeps_fused on CUDA: 1 P2G, S - 1 fused substeps, 1 G2P,
+    and x within 1e-5 of the unfused frame on the card."""
+    from pixie_tpu_torch.sim import bc as bc_mod
+    from pixie_tpu_torch.sim.solver import simulate_substeps, simulate_substeps_fused
+
+    st, cfg, _ = _fused_case((0, 1, 2, 3, 5, 6), True)
+    fields = fs.UPDATED_FIELDS + ("mass", "vol", "material", "bulk", "selection")
+    bcs = (bc_mod.make_surface_collider((1.0, 1.0, 0.5), (0.0, 0.0, 1.0), "sticky",
+                                        device=cuda_device),)
+    ref = simulate_substeps(_to(st, cuda_device, fields), cfg, bcs, 0.0, DT, 8)
+    before = (transfer.P2G_LAUNCHES, transfer.G2P_LAUNCHES, fs.FUSED_LAUNCHES)
+    got = simulate_substeps_fused(_to(st, cuda_device, fields), cfg, bcs, 0.0, DT, 8)
+    after = (transfer.P2G_LAUNCHES, transfer.G2P_LAUNCHES, fs.FUSED_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 7)
+    np.testing.assert_allclose(to_np(got.x), to_np(ref.x), rtol=0, atol=1e-5)
+
+
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    st, cfg, grid_v = _fused_case((0,), False, n=256)
+    st = _to(st, cuda_device, fs.UPDATED_FIELDS + ("mass", "vol", "material", "bulk",
+                                                   "selection"))
+    grid_v = grid_v.to(cuda_device)
+    active = st.selection == 0
+    with pytest.raises(TypeError):
+        fs.fused_substep(st.replace(mu=st.mu.double()), grid_v, cfg, DT, active)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fused_substep(st.replace(F=st.F.transpose(1, 2)), grid_v, cfg, DT, active)
+    with pytest.raises(ValueError, match="expected cuda"):
+        fs.fused_substep(st, grid_v, cfg, DT, active.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        fs.fused_substep(st, grid_v[:8], cfg, DT, active)
