@@ -8,8 +8,8 @@ at full width.
 Phases (any failure exits non-zero):
   1. device   — a CUDA device is required; prints nvidia-smi's name/power limit
   2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream,
-                fused_substep}.cu for sm_90a, one nvcc per source, started
-                together
+                fused_substep,probe_ablation,gather}.cu for sm_90a, one nvcc
+                per source, started together
   3. kernels  — P2G / G2P kernels vs their plain versions on the card at the
                 slice's shapes (100k particles, n_grid 50); the fused substep
                 (B6) vs its plain version on a mixed-material state at the
@@ -20,20 +20,28 @@ Phases (any failure exits non-zero):
                 seeded cotangent) vs their plain versions at the render's
                 shapes (~100k seeded gaussians at 800x800, the tree config's
                 camera), with timings and B4's peak device memory
-  4. train    — 3DGS training through train_gaussian_splatting: 12 views of
+  4. probes   — the probe entry points pixie_tpu_torch.scripts.
+                probe_kernel_ablation (P1: four P2G variants x two particle
+                orders, 100k particles, n_grid 50) and probe_vmem_gather (P2:
+                take_along_axis on both axes, 8192 x 128), their launch
+                counts, then each P1 variant against its plain version in
+                both orders and each gather axis exactly against its plain
+                version, with plain and torch.gather timings and B1's time
+                attributed to atomics, weight math and load/launch
+  5. train    — 3DGS training through train_gaussian_splatting: 12 views of
                 the seeded 100k-gaussian model rendered at 800x800 with the
                 port's forward and written as PNGs + transforms.json; 100k
                 init points (the model's centres plus seeded noise), SH 3,
                 tile_cap 1024, the shipped learning rates, 300 iterations
                 with densify at 100 and 200 and an opacity reset at 250;
                 B3 and B4 launch counts must match the steps and renders run
-  5. slice    — a seeded synthetic object (64^3 ball mask of ~100k voxels,
+  6. slice    — a seeded synthetic object (64^3 ball mask of ~100k voxels,
                 768-channel float16 features, clip_features.npz) through
                 pixie_tpu_torch.pipeline: both U-Nets at the shipped width ->
                 mapped_preds.ply, then under
                 config/objaverse/custom_tree_config.json
                 (a) point-cloud mode: 1 frame x 400 substeps of MPM;
-                (b) GS mode: the checkpoint phase 4 trained (its capture's
+                (b) GS mode: the checkpoint phase 5 trained (its capture's
                     cameras as cameras.json) -> 3 frames x 400 substeps,
                     each frame rendered to PNG + gaussian PLY;
                 (c) the fused path (fused=True, PIXIE_FUSED=1's solver):
@@ -45,9 +53,11 @@ Phases (any failure exits non-zero):
                 (and, in GS mode, its frames)
 The line before the last is the kernel JSON (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
-67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs);
-the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
-pixie_tpu.
+67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs,
+and torch.gather's time as the gather rows' library_ms); the launches of a
+probe row are those of the probe entry points' run, which launch no kernel
+of the pipeline paths, as those launch no probe kernel.  The last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX or pixie_tpu.
 """
 
 from __future__ import annotations
@@ -71,12 +81,20 @@ N_VIEWS, TRAIN_ITERS = 12, 300
 # threshold, converted to pixels at 800 px, is 2e-4 / 400
 TRAIN_CFG = dict(densify_from=100, densify_interval=100, densify_until=300,
                  opacity_reset_interval=250, densify_grad_threshold=2e-4 / (RES / 2))
-KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward", "fused_substep")
+PROBE_P2G = ("probe_p2g_full", "probe_p2g_noweights", "probe_p2g_noatomics",
+             "probe_p2g_minimal")
+GATHERS = ("gather_axis0", "gather_axis1")
+KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward", "fused_substep") + PROBE_P2G + GATHERS
 # stated tolerances of phase 3, relative to the largest |value| of the plain
 # result: P2G sums ~170 float atomics per node in run-dependent order; G2P
 # sums 27 terms in a fixed order but contracts multiply-adds (FMA) where the
 # plain version rounds each op
 P2G_RTOL, G2P_RTOL = 1e-5, 1e-5
+# the P1 variants against their plain versions, relative to the largest
+# |value|: full and noweights splat by atomics (P2G_RTOL); noatomics sums its
+# 27 nodes in registers in another order than the plain sum and contracts
+# multiply-adds; minimal adds 26 floats in the plain version's order
+PROBE_RTOL = {"full": P2G_RTOL, "noweights": P2G_RTOL, "noatomics": 1e-5, "minimal": 1e-6}
 # absolute, on colour and T in [0, 1]: the kernel's sequential product
 # against the plain version's log-domain chunked product, over <= 512 terms
 BLEND_ATOL = 1e-4
@@ -110,6 +128,10 @@ HBM_BPS, F32_OPS = 3.35e12, 67e12
 # and symmetrization
 G2P_OPS, COV_OPS, P2G_OPS, SVD3_OPS, RETURN_MAP_OPS = 1638, 63, 1830, 1292, 120
 STRESS_OPS = {0: 155, 1: 134, 2: 134, 3: 134, 5: 155, 6: 38}   # others: 18
+# P1 variants a particle: noweights the base cell 9, damping and stress 54,
+# one node's contribution 43 (every node's is the same) and 108 atomics;
+# noatomics as P2G (4 register adds a node for the 4 atomics); minimal 25 adds
+PROBE_OPS = {"full": P2G_OPS, "noweights": 214, "noatomics": P2G_OPS, "minimal": 25}
 # a (pixel, splat) pair of the blend: offsets, conic power, exp, alpha and its
 # gate (16), as every pair evaluates them; the blend of a hit is not counted
 BLEND_PAIR_OPS = 16
@@ -146,20 +168,24 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def _reset_counts() -> None:
-    from pixie_tpu_torch.ops import fused_substep, gs_stream, transfer
+    from pixie_tpu_torch.ops import fused_substep, gather, gs_stream, probe_ablation, transfer
 
     transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = 0
     gs_stream.BLEND_LAUNCHES = gs_stream.BLEND_BWD_LAUNCHES = 0
     fused_substep.FUSED_LAUNCHES = 0
+    probe_ablation.LAUNCHES.update(dict.fromkeys(probe_ablation.MODES, 0))
+    gather.LAUNCHES.update({0: 0, 1: 0})
 
 
 def _read_counts() -> dict:
-    from pixie_tpu_torch.ops import fused_substep, gs_stream, transfer
+    from pixie_tpu_torch.ops import fused_substep, gather, gs_stream, probe_ablation, transfer
 
     return {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
             "gs_blend": gs_stream.BLEND_LAUNCHES,
             "gs_blend_backward": gs_stream.BLEND_BWD_LAUNCHES,
-            "fused_substep": fused_substep.FUSED_LAUNCHES}
+            "fused_substep": fused_substep.FUSED_LAUNCHES,
+            **{f"probe_p2g_{m}": probe_ablation.LAUNCHES[m] for m in probe_ablation.MODES},
+            **{f"gather_axis{a}": gather.LAUNCHES[a] for a in (0, 1)}}
 
 
 def _counts(**kw) -> dict:
@@ -172,7 +198,8 @@ def phase_device():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
-    for src in ("transfer.cu", "gs_stream.cu", "fused_substep.cu", "mpm.cuh"):
+    for src in ("transfer.cu", "gs_stream.cu", "fused_substep.cu", "probe_ablation.cu",
+                "gather.cu", "mpm.cuh"):
         if not (HERE / "pixie_tpu_torch" / "csrc" / src).exists():
             fail(f"pixie_tpu_torch sources not found beside {Path(__file__).name}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -192,17 +219,17 @@ def phase_device():
             print(f"module {mod}: absent")
 
 
-LIBRARIES = ("transfer", "gs_stream", "fused_substep")
+LIBRARIES = ("transfer", "gs_stream", "fused_substep", "probe_ablation", "gather")
 
 
 def phase_build():
-    from pixie_tpu_torch.ops import build, fused_substep, gs_stream, transfer
+    from pixie_tpu_torch.ops import (build, fused_substep, gather, gs_stream, probe_ablation,
+                                     transfer)
 
     t0 = time.time()
     build.load_libraries(*LIBRARIES)  # one nvcc per source, all at once
-    transfer.build()
-    gs_stream.build()
-    fused_substep.build()
+    for mod in (transfer, gs_stream, fused_substep, probe_ablation, gather):
+        mod.build()
     print(f"build: {', '.join(n + '.cu' for n in LIBRARIES)} in {time.time() - t0:.2f} s",
           flush=True)
     for name in LIBRARIES:
@@ -634,6 +661,85 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
             "library_ms": None}
 
 
+def phase_probes(dev, n: int = N_PARTICLES, t: int = 8192, l: int = 128) -> tuple[dict, dict]:
+    """The probe entry points P1 and P2 at full width, their launch counts,
+    then each kernel against its plain version on the same inputs.  Returns
+    (kernel rows, the probe path's launches)."""
+    import torch
+
+    from pixie_tpu_torch.ops import gather, probe_ablation as pa
+    from pixie_tpu_torch.scripts import probe_kernel_ablation as p1, probe_vmem_gather as p2
+    from pixie_tpu_torch.scripts.timing import time_calls
+
+    _reset_counts()
+    p1_ms = p1.main(device=dev, n=n)
+    p2_out = p2.main(device=dev, t=t, l=l)
+    launches = _read_counts()
+    want = _counts(**dict.fromkeys(PROBE_P2G, len(p1.ORDERS) * (p1.WARMUP + p1.REPS)),
+                   **dict.fromkeys(GATHERS, 1 + p2.WARMUP + p2.REPS))
+    print(f"probes: launches {launches}", flush=True)
+    if launches != want:
+        fail(f"probe launches {launches} != {want}")
+
+    def median_ms(fn, reps=30):
+        return statistics.median(time_calls(fn, [()] * reps, dev))
+
+    rows, cfg, d = {}, p1.config(), p1.make_particles(n)
+    for order in p1.ORDERS:
+        args = p1.inputs(d, order, cfg, dev)
+        for mode in pa.MODES:
+            got = pa.p2g_variant(mode, *args, cfg, p1.DT)
+            ref = pa.p2g_variant_plain(mode, *args, cfg, p1.DT)
+            torch.cuda.synchronize()
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            tol = PROBE_RTOL[mode] * scale
+            print(f"probe_p2g_{mode} ({order}): max_abs_err {err:.3e} (max |plain| {scale:.3e}, "
+                  f"tol {tol:.3e})")
+            if not (err <= tol and scale > 0.0):
+                fail(f"P1 {mode} kernel disagrees with its plain version ({order} order)")
+            row = rows.setdefault(f"probe_p2g_{mode}", {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if order == "generated":
+                act, g3 = int(args[6].sum()), cfg.n_grid ** 3
+                out_bytes = {"full": g3 * 16, "noweights": g3 * 16, "noatomics": n * 16,
+                             "minimal": n * 4}[mode]
+                b = bound(act * (12 + 12 + 36 + 36 + 4 + 4) + n + out_bytes,
+                          act * PROBE_OPS[mode])
+                p_ms = median_ms(lambda m=mode: pa.p2g_variant_plain(m, *args, cfg, p1.DT),
+                                 reps=10)
+                row.update(ms=p1_ms[mode]["generated"], plain_ms=p_ms, **b, library_ms=None,
+                           ms_cell_sorted=p1_ms[mode]["cell_sorted"])
+                print(f"probe_p2g_{mode}: kernel {row['ms']:.4f} ms (cell-sorted "
+                      f"{row['ms_cell_sorted']:.4f}), plain {p_ms:.4f} ms (median of 10), bound "
+                      f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    for order in p1.ORDERS:
+        ms = {m: p1_ms[m][order] for m in pa.MODES}
+        print(f"P2G attribution ({order}, {n} particles): full {ms['full']:.4f} ms; atomics "
+              f"~ full - noatomics = {ms['full'] - ms['noatomics']:.4f} ms; weight math ~ full - "
+              f"noweights = {ms['full'] - ms['noweights']:.4f} ms; load/launch ~ minimal = "
+              f"{ms['minimal']:.4f} ms", flush=True)
+
+    for axis in (0, 1):
+        table, idx, _ = p2.make_inputs(axis, t, l, device=dev)
+        got = gather.take_along_axis(table, idx, axis)
+        ref = gather.take_along_axis_plain(table, idx, axis)
+        lib = torch.gather(table, axis, idx)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(lib, ref)):
+            fail(f"gather axis {axis} kernel disagrees with its plain version")
+        k_ms = median_ms(lambda: gather.take_along_axis(table, idx, axis))
+        lib_ms = median_ms(lambda: torch.gather(table, axis, idx))
+        p_ms = median_ms(lambda: gather.take_along_axis_plain(table, idx, axis), reps=10)
+        b = bound(3 * t * l * 4, 0)
+        name = f"gather_axis{axis}"
+        print(f"{name}: exact against its plain version and torch.gather; kernel {k_ms:.4f} ms "
+              f"(probe: mean {p2_out[axis]['ms']:.4f} over {p2.REPS} fresh index arrays), "
+              f"torch.gather {lib_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) at {t} x {l}", flush=True)
+        rows[name] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": lib_ms}
+    return rows, launches
+
+
 def phase_train(dev, root: Path, n_gaussians: int = N_GAUSSIANS, res: int = RES,
                 n_views: int = N_VIEWS, iters: int = TRAIN_ITERS,
                 cfg_kw: dict | None = None) -> dict:
@@ -959,8 +1065,10 @@ def main() -> int:
     phase_profile(dev)
     kern["gs_blend"] = phase_blend(dev)
     kern["gs_blend_backward"] = phase_blend_backward(dev)
+    probe_rows, probe_launches = phase_probes(dev)
+    kern.update(probe_rows)
     with tempfile.TemporaryDirectory(prefix="pixie_smoke_train_") as tmp:
-        paths = {"train": phase_train(dev, Path(tmp))}
+        paths = {"probes": probe_launches, "train": phase_train(dev, Path(tmp))}
         paths.update(phase_slice(dev, gs_dir=Path(tmp) / "gs"))
     print(f"launches by path: {paths}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
@@ -973,7 +1081,10 @@ def main() -> int:
             ("g2p", "transfer.cu", "pixie_tpu/ops/transfer.py:439"),
             ("gs_blend", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:210"),
             ("gs_blend_backward", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:252"),
-            ("fused_substep", "fused_substep.cu", "pixie_tpu/ops/fused_substep.py:266")):
+            ("fused_substep", "fused_substep.cu", "pixie_tpu/ops/fused_substep.py:266"),
+            *((name, "probe_ablation.cu", "scripts/probe_kernel_ablation.py:112")
+              for name in PROBE_P2G),
+            *((name, "gather.cu", "scripts/probe_vmem_gather.py:48") for name in GATHERS)):
         rows.append({"name": name, "route": "cuda", "source": f"pixie_tpu_torch/csrc/{src}",
                      "replaces": replaces, "launches": launches[name], **kern[name]})
     print(json.dumps({"kernels": rows}))

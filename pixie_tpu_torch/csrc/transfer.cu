@@ -7,7 +7,8 @@
 //
 // The arithmetic follows pixie_tpu/sim/solver.py (p2g :60-128, g2p :171-220)
 // term for term.  The B-spline stencil (spline_weights) is shared with
-// the fused substep through mpm.cuh.
+// the fused substep, and the per-particle splat (p2g_particle) with the P2G
+// ablation probe (probe_ablation.cu), through mpm.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,6 +30,8 @@ using pixie::spline_weights;
 //
 // Design: one thread per particle, 27 nodes x 4 float atomicAdds into a
 // zeroed (G^3, 4) grid; out-of-grid nodes are dropped (solver.py:112-118).
+// The body is mpm.cuh's p2g_particle<kP2GFull>, which the P1 probe's `full`
+// variant instantiates too, so the probe's ablations measure this kernel.
 // The TPU kernel's tile-sorted layout, one-hot window factors and MXU
 // contractions existed because the TPU serializes scatters; Hopper has
 // native global atomics, so none of that is carried over.
@@ -51,70 +54,9 @@ __global__ void p2g_kernel(const float* __restrict__ x,
                            int n, int n_grid, float dx, float inv_dx, float dt,
                            float rpic_damping) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n || !active[p]) return;
-
-  const Spline s = spline_weights(x + 3 * p, inv_dx);
-
-  // RPIC / PIC damping of C (solver.py:73-80)
-  float c[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) c[k] = C[9 * p + k];
-  if (rpic_damping < -0.001f) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) c[k] = 0.0f;
-  } else if (rpic_damping != 0.0f) {
-    float d[9];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        d[3 * i + j] = (1.0f - rpic_damping) * c[3 * i + j] +
-                       rpic_damping / 2.0f * (c[3 * i + j] - c[3 * j + i]);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) c[k] = d[k];
-  }
-
-  const float m = mass[p];
-  const float nvol = -vol[p];
-  float sc[9];  // -vol * stress * dt
-#pragma unroll
-  for (int k = 0; k < 9; ++k) sc[k] = nvol * stress[9 * p + k] * dt;
-  const float vx = v[3 * p], vy = v[3 * p + 1], vz = v[3 * p + 2];
-
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int gi = s.base[0] + i;
-    if (gi < 0 || gi >= n_grid) continue;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int gj = s.base[1] + j;
-      if (gj < 0 || gj >= n_grid) continue;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int gk = s.base[2] + k;
-        if (gk < 0 || gk >= n_grid) continue;
-        const float wx = s.w[0][i], wy = s.w[1][j], wz = s.w[2][k];
-        const float weight = wx * wy * wz;
-        const float g0 = s.dw[0][i] * wy * wz * inv_dx;
-        const float g1 = wx * s.dw[1][j] * wz * inv_dx;
-        const float g2 = wx * wy * s.dw[2][k] * inv_dx;
-        const float d0 = (static_cast<float>(i) - s.fx[0]) * dx;
-        const float d1 = (static_cast<float>(j) - s.fx[1]) * dx;
-        const float d2 = (static_cast<float>(k) - s.fx[2]) * dx;
-        const float ax = vx + (c[0] * d0 + c[1] * d1 + c[2] * d2);
-        const float ay = vy + (c[3] * d0 + c[4] * d1 + c[5] * d2);
-        const float az = vz + (c[6] * d0 + c[7] * d1 + c[8] * d2);
-        const float mx = weight * (m * ax) + (sc[0] * g0 + sc[1] * g1 + sc[2] * g2);
-        const float my = weight * (m * ay) + (sc[3] * g0 + sc[4] * g1 + sc[5] * g2);
-        const float mz = weight * (m * az) + (sc[6] * g0 + sc[7] * g1 + sc[8] * g2);
-        float* node = grid + 4 * ((static_cast<int64_t>(gi) * n_grid + gj) * n_grid + gk);
-        atomicAdd(node + 0, mx);
-        atomicAdd(node + 1, my);
-        atomicAdd(node + 2, mz);
-        atomicAdd(node + 3, weight * m);
-      }
-    }
-  }
+  if (p >= n) return;
+  pixie::p2g_particle<pixie::kP2GFull>(p, x, v, C, stress, mass, vol, active, grid, nullptr,
+                                       n_grid, dx, inv_dx, dt, rpic_damping);
 }
 
 // ---------------------------------------------------------------------------

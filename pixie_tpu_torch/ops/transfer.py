@@ -94,10 +94,13 @@ def _damped_C(C: torch.Tensor, rpic_damping: float) -> torch.Tensor:
 
 # -- P2G -----------------------------------------------------------------------
 
-def p2g_plain(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
-    """Plain PyTorch P2G: grid (G,G,G,4) = [momentum xyz, mass], by index_add_."""
+def p2g_contributions(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt, stencil=None):
+    """Per (node offset, particle) P2G contributions (27,N,4) = [momentum
+    xyz, mass], zero for out-of-grid nodes and inactive particles, and the
+    flat node index (27,N).  ``stencil`` replaces ``_stencil``'s output
+    (the P2G ablation probe makes the weights constant)."""
     g, dx, inv_dx = cfg.n_grid, cfg.dx, cfg.inv_dx
-    weight, dweight, dpos, flat, in_bounds = _stencil(x, g, inv_dx)
+    weight, dweight, dpos, flat, in_bounds = stencil or _stencil(x, g, inv_dx)
     C = _damped_C(C, cfg.rpic_damping)
     act = active.to(torch.float32)
     m = mass * act
@@ -107,8 +110,18 @@ def p2g_plain(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.T
     mom = weight[..., None] * (m[None, :, None] * v_aff) + (
         stress_scaled[None] * dweight[..., None, :]).sum(-1) * act[None, :, None]
     vals = torch.cat([mom, (weight * m[None])[..., None]], dim=-1)
-    vals = torch.where(in_bounds[..., None], vals, 0.0)
-    grid = torch.zeros((g * g * g, 4), dtype=torch.float32, device=x.device)
+    return torch.where(in_bounds[..., None], vals, 0.0), flat
+
+
+def p2g_plain(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
+    """Plain PyTorch P2G: grid (G,G,G,4) = [momentum xyz, mass], by index_add_."""
+    return scatter_to_grid(*p2g_contributions(x, v, C, stress, mass, vol, active, cfg, dt),
+                           cfg.n_grid)
+
+
+def scatter_to_grid(vals: torch.Tensor, flat: torch.Tensor, g: int) -> torch.Tensor:
+    """Sum (27,N,4) node contributions into the (G,G,G,4) grid by index_add_."""
+    grid = torch.zeros((g * g * g, 4), dtype=torch.float32, device=vals.device)
     grid.index_add_(0, flat.reshape(-1), vals.reshape(-1, 4))
     return grid.reshape(g, g, g, 4)
 

@@ -104,14 +104,14 @@ class SimRenderer:
     fovy: float
     white_bg: bool = False
     unselected: dict | None = None  # pos/cov6/opacity/shs in world frame
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     _dev: dict = field(default_factory=dict, repr=False)
 
     @classmethod
     def from_camera_params(cls, camera_params: dict, model_path, n_frames: int, shs,
                            opacity_act, scale_origin, original_mean_pos,
                            rotation_matrices, z_shift, unselected=None, white_bg=False,
-                           device: str | torch.device = "cpu"):
+                           device: str | torch.device = "cuda"):
         """Reference camera setup (gs_simulation.py:536-590): MPM-space
         viewpoint center/up -> world orbit basis -> per-frame views."""
         center_w, obs = cam_utils.get_center_view_worldspace_and_observant_coordinate(

@@ -16,8 +16,12 @@ C, F_trial, cov and the grid to 1e-5 of each field's largest |value|; F,
 stress, mu, lam and the yield stress to the float32 ULP floor 6 * 1.2e-7 *
 scale (scale E for stress, the field's largest |value| otherwise), 90 % of
 entries within it and all within 100 times it (JAX's fused-vs-two-kernel
-criterion, tests/test_fast_solver.py:282-294).  This file imports no JAX
-package module.
+criterion, tests/test_fast_solver.py:282-294).  The P2G ablation probe's
+variants (P1) are held as chip_smoke.py holds them: full and noweights
+splat by atomics (1e-5 of the largest |grid|), noatomics sums its 27 nodes
+in another order (1e-5 of the largest |value|), minimal adds 26 floats in
+the plain version's order (1e-6).  The take_along_axis kernels (P2) copy
+values and agree exactly.  This file imports no JAX package module.
 """
 
 import numpy as np
@@ -29,8 +33,9 @@ from torch_parity import (  # noqa: F401  (fixture)
 )
 
 from pixie_tpu_torch.ops import fused_substep as fs
-from pixie_tpu_torch.ops import gs_stream, transfer
+from pixie_tpu_torch.ops import gather, gs_stream, probe_ablation, transfer
 from pixie_tpu_torch.recon import rasterizer as R
+from pixie_tpu_torch.scripts import probe_kernel_ablation as p1, probe_vmem_gather as p2
 from pixie_tpu_torch.sim.types import MPMConfig, finalize_mu_lam, make_state
 
 pytestmark = pytest.mark.cuda
@@ -346,3 +351,72 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         fs.fused_substep(st, grid_v, cfg, DT, active.cpu())
     with pytest.raises(ValueError, match="shape"):
         fs.fused_substep(st, grid_v[:8], cfg, DT, active)
+
+
+PROBE_RTOL = {"full": 1e-5, "noweights": 1e-5, "noatomics": 1e-5, "minimal": 1e-6}
+
+
+@pytest.mark.parametrize("order", p1.ORDERS)
+@pytest.mark.parametrize("mode", probe_ablation.MODES)
+def test_probe_p2g_variant_matches_plain(cuda_device, mode, order):
+    """The probe's particles (20k), every 11th inactive and 64 hanging off
+    the low grid faces, in both orders."""
+    d = p1.make_particles(20_000, seed=2)
+    d["x"][:64] = np.float32(0.02)
+    cfg = p1.config()
+    cpu = p1.inputs(d, order, cfg, "cpu")
+    active = cpu[6].clone()
+    active[::11] = False
+    cpu = (*cpu[:6], active)
+    want = probe_ablation.p2g_variant_plain(mode, *cpu, cfg, p1.DT)
+    before = probe_ablation.LAUNCHES[mode]
+    got = probe_ablation.p2g_variant(mode, *(t.to(cuda_device) for t in cpu), cfg, p1.DT)
+    assert probe_ablation.LAUNCHES[mode] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    want = to_np(want)
+    np.testing.assert_allclose(to_np(got), want, rtol=0,
+                               atol=PROBE_RTOL[mode] * np.abs(want).max())
+
+
+def test_probe_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    cfg = p1.config()
+    args = list(p1.inputs(p1.make_particles(256), "generated", cfg, cuda_device))
+    for i, bad, err in ((0, args[0].double(), TypeError), (6, args[6].int(), TypeError),
+                        (2, args[2].transpose(1, 2), ValueError), (4, args[4].cpu(), ValueError),
+                        (5, args[5][:-1], ValueError)):
+        with pytest.raises(err):
+            probe_ablation.p2g_variant("full", *args[:i], bad, *args[i + 1:], cfg, p1.DT)
+
+
+@pytest.mark.parametrize("case", ["probe", "ragged", "equal_row"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_axis_kernel_matches_plain(cuda_device, axis, case):
+    """The probe's 8192 x 128; T = 1003 at L = 100 (no multiple of the 256
+    threads of axis 0 or of axis 1's 20 rows a block); a row of one index
+    repeated (every thread of a warp on one bank / one table row)."""
+    t, l = (1003, 100) if case == "ragged" else (p2.T, p2.L)
+    table, idx, _ = p2.make_inputs(axis, t, l, seed=3)
+    if case == "equal_row":
+        idx[5] = 7
+        idx[:, 9] = 7
+    want = gather.take_along_axis_plain(table, idx, axis)
+    before = gather.LAUNCHES[axis]
+    got = gather.take_along_axis(table.to(cuda_device), idx.to(cuda_device), axis)
+    assert gather.LAUNCHES[axis] == before + 1
+    np.testing.assert_array_equal(to_np(got), to_np(want))
+    np.testing.assert_array_equal(to_np(got), np.take_along_axis(to_np(table), to_np(idx), axis))
+
+
+def test_take_along_axis_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    table, idx, _ = p2.make_inputs(1, 64, 32, device=cuda_device)
+    with pytest.raises(TypeError):
+        gather.take_along_axis(table, idx.long(), 0)
+    with pytest.raises(TypeError):
+        gather.take_along_axis(table.double(), idx, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.take_along_axis(table.t().contiguous().t(), idx, 1)
+    with pytest.raises(ValueError, match="expected cuda"):
+        gather.take_along_axis(table, idx.cpu(), 1)
+    with pytest.raises(ValueError, match="at most"):
+        wide = torch.zeros((2, gather.MAX_AXIS1_ROW + 1), device=cuda_device)
+        gather.take_along_axis(wide, torch.zeros_like(wide, dtype=torch.int32), 1)

@@ -36,7 +36,11 @@ def test_module_list_covers_the_slice():
               "pixie_tpu_torch.sim.render_sim", "pixie_tpu_torch.recon.train_gaussians",
               "pixie_tpu_torch.recon.train_field", "pixie_tpu_torch.recon.colmap",
               "pixie_tpu_torch.utils.metrics", "pixie_tpu_torch.ops.fused_substep",
-              "pixie_tpu_torch.config", "pixie_tpu_torch.config.core"):
+              "pixie_tpu_torch.config", "pixie_tpu_torch.config.core",
+              "pixie_tpu_torch.ops.probe_ablation", "pixie_tpu_torch.ops.gather",
+              "pixie_tpu_torch.scripts", "pixie_tpu_torch.scripts.timing",
+              "pixie_tpu_torch.scripts.probe_kernel_ablation",
+              "pixie_tpu_torch.scripts.probe_vmem_gather"):
         assert m in MODULES
 
 
@@ -44,7 +48,9 @@ def test_no_jax_after_importing_every_module():
     assert _import_in_fresh_interpreter(MODULES) == []
 
 
-@pytest.mark.parametrize("entry", ["pixie_tpu_torch.pipeline", "pixie_tpu_torch.sim.driver"])
+@pytest.mark.parametrize("entry", ["pixie_tpu_torch.pipeline", "pixie_tpu_torch.sim.driver",
+                                   "pixie_tpu_torch.scripts.probe_kernel_ablation",
+                                   "pixie_tpu_torch.scripts.probe_vmem_gather"])
 def test_no_jax_from_entry_point(entry):
     assert _import_in_fresh_interpreter([entry]) == []
 
@@ -79,7 +85,10 @@ def test_kernel_build_is_lazy():
     """Importing the kernel module builds nothing and needs no nvcc."""
     code = ("import pixie_tpu_torch.ops.transfer as t, pixie_tpu_torch.ops.build as b\n"
             "import pixie_tpu_torch.ops.gs_stream, pixie_tpu_torch.recon.rasterizer\n"
-            "import pixie_tpu_torch.ops.fused_substep\n"
+            "import pixie_tpu_torch.ops.fused_substep, pixie_tpu_torch.ops.probe_ablation\n"
+            "import pixie_tpu_torch.ops.gather\n"
+            "import pixie_tpu_torch.scripts.probe_kernel_ablation\n"
+            "import pixie_tpu_torch.scripts.probe_vmem_gather\n"
             "assert not b._LIBS\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

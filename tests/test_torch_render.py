@@ -346,8 +346,23 @@ def _renderers(root: Path):
     kw = dict(camera_params=cam, model_path=root / "gs", n_frames=2, shs=shs[m],
               opacity_act=op[m], scale_origin=scale, original_mean_pos=mean,
               rotation_matrices=rot, z_shift=0.1, unselected=unselected, white_bg=True)
-    return (JS.SimRenderer.from_camera_params(**kw), TS.SimRenderer.from_camera_params(**kw),
+    return (JS.SimRenderer.from_camera_params(**kw),
+            TS.SimRenderer.from_camera_params(**kw, device="cpu"),
             x_mpm, cov_mpm)
+
+
+def test_sim_renderer_defaults_to_the_card():
+    """SimRenderer defaults to CUDA, as every other entry point of the port
+    does; the CPU is asked for explicitly, as these tests do."""
+    import dataclasses
+    import inspect
+
+    from pixie_tpu_torch.sim.render_sim import SimRenderer
+
+    sig = inspect.signature(SimRenderer.from_camera_params)
+    assert sig.parameters["device"].default == "cuda"
+    fields = {f.name: f for f in dataclasses.fields(SimRenderer)}
+    assert fields["device"].default == torch.device("cuda")
 
 
 def test_render_frame_matches_jax(tmp_path):
