@@ -10,8 +10,12 @@ Phases (any failure exits non-zero):
   2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream,
                 fused_substep,probe_ablation,gather}.cu for sm_90a, one nvcc
                 per source, started together
-  3. kernels  — P2G / G2P kernels vs their plain versions on the card at the
-                slice's shapes (100k particles, n_grid 50); the fused substep
+  3. kernels  — P2G (B1: bin keys, torch.sort, binned splat) vs its plain
+                version in three cases (the slice's state: 100k particles,
+                n_grid 50; the same sorted by cell; P1's 100k particles at
+                ~45 a cell), each with its device time, the share of the
+                sort and the unbinned splat's time; G2P vs its plain version
+                at the slice's shapes; the fused substep
                 (B6) vs its plain version on a mixed-material state at the
                 same shapes (ids 0, 1, 2, 3, 5, 6, yielding, damaged,
                 inactive and off-face particles); a torch.profiler count of
@@ -19,15 +23,21 @@ Phases (any failure exits non-zero):
                 (B3, tile_cap 512) and its backward (B4, tile_cap 1024, a
                 seeded cotangent) vs their plain versions at the render's
                 shapes (~100k seeded gaussians at 800x800, the tree config's
-                camera), with timings and B4's peak device memory
+                camera), with timings and B4's peak device memory, and B4's
+                ablation: without its per-entry reduction, and with a
+                first walk in place of the forward's state; the forward
+                with and without that state at B4's shapes; the unfused
+                substep with the binned P2G and with the unbinned splat,
+                in turns
   4. probes   — the probe entry points pixie_tpu_torch.scripts.
                 probe_kernel_ablation (P1: four P2G variants x two particle
                 orders, 100k particles, n_grid 50) and probe_vmem_gather (P2:
                 take_along_axis on both axes, 8192 x 128), their launch
                 counts, then each P1 variant against its plain version in
                 both orders and each gather axis exactly against its plain
-                version, with plain and torch.gather timings and B1's time
-                attributed to atomics, weight math and load/launch
+                version, with plain and torch.gather timings and the unbinned
+                splat's time attributed to atomics, weight math and
+                load/launch
   5. train    — 3DGS training through train_gaussian_splatting: 12 views of
                 the seeded 100k-gaussian model rendered at 800x800 with the
                 port's forward and written as PNGs + transforms.json; 100k
@@ -49,6 +59,11 @@ Phases (any failure exits non-zero):
                     holds the impulse and runs unfused, every later frame
                     1 P2G + 399 fused substeps + 1 G2P; fused and unfused
                     GS frames agree in x after frame 1;
+                (d) particle filling: the outer half of the capture's
+                    seeded model under a copy of
+                    config/objaverse/custom_sand_config.json cut to 1 frame x
+                    20 substeps (n_grid 200, fill grid 100), rendered once;
+                    the filled count must be positive;
                 each path's kernel launch counts must equal its substeps
                 (and, in GS mode, its frames)
 The line before the last is the kernel JSON (with each kernel's bound: the
@@ -267,24 +282,91 @@ def _slice_state(dev):
     return st, cfg
 
 
-def phase_kernels(dev):
+def _p2g_case(dev, label: str, args: tuple, cfg, dt, reps: int = 30) -> dict:
+    """B1 (key kernel, torch.sort, binned splat) against p2g_plain on one
+    input: the error and grid-mass check, the wrapper's time (CUDA events
+    around each call, as every phase-3 row), its device time and that of
+    torch.sort of its keys (a sleep kernel queued ahead, scripts/timing.py),
+    and the device time of the unbinned splat (P1's full) on the same
+    inputs, in the same call."""
+    import torch
+
+    from pixie_tpu_torch.ops import probe_ablation as pa
+    from pixie_tpu_torch.ops import transfer
+    from pixie_tpu_torch.scripts.timing import time_calls
+
+    grid_k = transfer.p2g(*args, cfg, dt)
+    grid_p = transfer.p2g_plain(*args, cfg, dt)
+    torch.cuda.synchronize()
+    scale = float(grid_p.abs().max())
+    err = float((grid_k - grid_p).abs().max())
+    mass_k, mass_p = float(grid_k[..., 3].double().sum()), float(args[4][args[6]].double().sum())
+    keys = transfer.p2g_bin_keys(args[0], args[6], cfg.n_grid, cfg.inv_dx)
+    nb, hbits = transfer.bin_layout(cfg.n_grid)
+    ids, bins = torch.unique(keys >> hbits, return_counts=True)
+    bins = bins[ids < nb ** 3].float()
+    print(f"p2g ({label}): {args[0].shape[0]} particles, n_grid {cfg.n_grid}, {bins.numel()} "
+          f"bins of {transfer.P2G_BIN}^3 cells ({float(bins.mean()):.1f} particles "
+          f"a bin, largest {int(bins.max())}); max_abs_err {err:.3e} (max |grid| "
+          f"{scale:.3e}, tol {P2G_RTOL * scale:.3e}); grid mass {mass_k:.6f} vs particle mass "
+          f"{mass_p:.6f}")
+    if not err <= P2G_RTOL * scale or abs(mass_k - mass_p) > 1e-4 * mass_p:
+        fail(f"p2g kernel disagrees with its plain version ({label})")
+
+    def device_ms(fn):
+        return statistics.median(time_calls(fn, [()] * reps, dev))
+
+    def host_ms(fn, calls=10):
+        """Host time a call, enqueued behind a sleep kernel (a few launches
+        each: the launch queue does not fill)."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (t1 - t0) / calls
+
+    row = {"max_abs_err": err, "ms": cuda_ms(lambda: transfer.p2g(*args, cfg, dt), reps=reps),
+           "device_ms": device_ms(lambda: transfer.p2g(*args, cfg, dt)),
+           "sort_ms": device_ms(lambda: torch.sort(keys)),
+           "unbinned_ms": device_ms(lambda: pa.p2g_variant("full", *args, cfg, dt)),
+           "host_ms": host_ms(lambda: transfer.p2g(*args, cfg, dt)),
+           "unbinned_host_ms": host_ms(lambda: pa.p2g_variant("full", *args, cfg, dt))}
+    print(f"p2g ({label}): wrapper {row['ms']:.4f} ms (CUDA events around the call), device "
+          f"{row['device_ms']:.4f} ms, of which torch.sort of the keys {row['sort_ms']:.4f} ms "
+          f"(share {row['sort_ms'] / row['device_ms']:.3f}); the unbinned splat (P1 full) "
+          f"{row['unbinned_ms']:.4f} ms device (medians of {reps}); host time a call "
+          f"{row['host_ms']:.4f} ms (unbinned {row['unbinned_host_ms']:.4f})", flush=True)
+    return row
+
+
+def phase_kernels(dev, n_p1: int = 100_000):
+    import numpy as np
     import torch
 
     from pixie_tpu_torch.ops import transfer
+    from pixie_tpu_torch.scripts import probe_kernel_ablation as p1
     from pixie_tpu_torch.sim.solver import grid_momentum_to_velocity
 
     st, cfg = _slice_state(dev)
-    args = (st.x, st.v, st.C, st.stress, st.mass, st.vol, st.selection == 0, cfg, DT)
-    grid_k = transfer.p2g(*args)
+    args = (st.x, st.v, st.C, st.stress, st.mass, st.vol, st.selection == 0)
+    # B1 in three cases: the phase-3 state (random order, ~6.4 particles a
+    # cell), the same state sorted by base cell, and P1's particles (100k in
+    # [0.75, 1.25]^3 at n_grid 50, ~45 a cell)
+    order = torch.as_tensor(np.argsort(p1.base_cells(st.x.cpu().numpy(), cfg), kind="stable"),
+                            device=dev)
+    p1_cfg = p1.config()
+    cases = {"phase-3 state": _p2g_case(dev, "phase-3 state", args, cfg, DT),
+             "cell-sorted": _p2g_case(dev, "cell-sorted", tuple(a[order].contiguous()
+                                                                for a in args), cfg, DT),
+             "P1 state": _p2g_case(dev, "P1 state", p1.inputs(p1.make_particles(n_p1), "generated",
+                                                              p1_cfg, dev), p1_cfg, p1.DT)}
+    p2g_err = max(c["max_abs_err"] for c in cases.values())
+    args = (*args, cfg, DT)
     grid_p = transfer.p2g_plain(*args)
-    torch.cuda.synchronize()
-    scale = float(grid_p.abs().max())
-    p2g_err = float((grid_k - grid_p).abs().max())
-    mass_k, mass_p = float(grid_k[..., 3].double().sum()), float(st.mass.double().sum())
-    print(f"p2g: max_abs_err {p2g_err:.3e} (max |grid| {scale:.3e}, tol "
-          f"{P2G_RTOL * scale:.3e}); grid mass {mass_k:.6f} vs particle mass {mass_p:.6f}")
-    if not p2g_err <= P2G_RTOL * scale or abs(mass_k - mass_p) > 1e-4 * mass_p:
-        fail("p2g kernel disagrees with its plain version")
 
     grid_v = grid_momentum_to_velocity(grid_p, cfg, DT).contiguous()
     fields = ("x", "v", "C", "F_trial", "cov")
@@ -306,8 +388,7 @@ def phase_kernels(dev):
         g2p_err = max(g2p_err, err)
 
     timings = {
-        "p2g": (cuda_ms(lambda: transfer.p2g(*args)),
-                cuda_ms(lambda: transfer.p2g_plain(*args))),
+        "p2g": (cases["phase-3 state"]["ms"], cuda_ms(lambda: transfer.p2g_plain(*args))),
         "g2p": (cuda_ms(lambda s: transfer.g2p(s, grid_v, cfg, DT), setup=lambda: (fresh(),)),
                 cuda_ms(lambda s: transfer.g2p_plain(s, grid_v, cfg, DT),
                         setup=lambda: (fresh(),))),
@@ -326,6 +407,7 @@ def phase_kernels(dev):
               f"CUDA-event timings, {N_PARTICLES} particles, n_grid {N_GRID})")
         rows[name] = {"max_abs_err": p2g_err if name == "p2g" else g2p_err, "ms": k_ms,
                       "plain_ms": p_ms, **bounds[name], "library_ms": None}
+    rows["p2g"]["cases"] = cases
     return rows
 
 
@@ -471,13 +553,20 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
     the difference between a frame of substeps[path] substeps (20 unfused,
     a whole frame of 400 fused) and a frame of 1, so the fused frame's
     prologue and epilogue (the plain constitutive pass, once a frame) are
-    reported apart.  Wall times are the best of 3 synchronized runs, all
-    taken before the first profiler session; a frame of 1 substep varies by
-    several ms on the host's clock, which the long frames dilute."""
+    reported apart.  Wall times are the best of 3 synchronized runs, taken
+    before the profiler sessions of their turn; a frame of 1 substep varies
+    by several ms on the host's clock, which the long frames dilute.  The
+    unfused substep runs four turns: with B1 as shipped, with the unbinned
+    splat (P1's full, the one-kernel P2G before the binning) in its place,
+    again unbinned, again binned."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pixie_tpu_torch.ops import fused_substep as fs
+    from pixie_tpu_torch.ops import probe_ablation as pa
+    from pixie_tpu_torch.ops import transfer
     from pixie_tpu_torch.sim import bc as bc_mod
     from pixie_tpu_torch.sim.solver import simulate_substeps, simulate_substeps_fused
 
@@ -487,6 +576,15 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
     runs = {"unfused": simulate_substeps, "fused": simulate_substeps_fused}
     substeps = substeps or {"unfused": 20, "fused": 400}
 
+    @contextlib.contextmanager
+    def unbinned():
+        shipped = transfer.p2g
+        transfer.p2g = lambda *a: pa.p2g_variant("full", *a)
+        try:
+            yield
+        finally:
+            transfer.p2g = shipped
+
     def go(name, k):
         s = st.replace(**{f: getattr(st, f).clone() for f in fs.UPDATED_FIELDS})
         torch.cuda.synchronize()
@@ -495,29 +593,34 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    cases = [(name, k) for name in runs for k in (1, substeps[name])]
-    walls = {}
-    for case in cases:
-        go(*case)  # warm-up
-        walls[case] = min(go(*case) for _ in range(3))
-    counts = {}
-    for case in cases:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            go(*case)
-        events = prof.events()
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                        "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-        counts[case] = (len(kernels), launches, sum(e.time_range.elapsed_us() for e in kernels))
-    for name, k in substeps.items():
-        one, full = (walls[(name, 1)], *counts[(name, 1)]), (walls[(name, k)], *counts[(name, k)])
+    def measure(name, label):
+        k = substeps[name]
+        walls, res = {}, {}
+        for case in (1, k):
+            go(name, case)  # warm-up
+            walls[case] = min(go(name, case) for _ in range(3))
+        for case in (1, k):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                go(name, case)
+            events = prof.events()
+            kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+            launches = sum(1 for e in events if e.name in (
+                "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+            res[case] = (walls[case], len(kernels), launches,
+                         sum(e.time_range.elapsed_us() for e in kernels))
+        one, full = res[1], res[k]
         wall, n_kern, n_launch, dev_us = ((f - o) / (k - 1) for f, o in zip(full, one))
-        print(f"profile {name}, {n} particles, a substep (frame of {k} less frame of 1): "
+        print(f"profile {label}, {n} particles, a substep (frame of {k} less frame of 1): "
               f"{1.0 / wall:.2f} substeps/s, {wall * 1e3:.3f} ms wall, {n_kern:.1f} device "
               f"kernels, {n_launch:.1f} kernel launches, device time {dev_us / 1e3:.3f} ms, "
               f"device idle {1.0 - dev_us * 1e-6 / wall:.3f} of the wall; a frame of 1 substep: "
               f"{one[0] * 1e3:.3f} ms wall, {one[1]} device kernels, {one[2]} launches, device "
               f"time {one[3] / 1e3:.3f} ms", flush=True)
+
+    for turn in ("binned", "unbinned", "unbinned", "binned"):
+        with unbinned() if turn == "unbinned" else contextlib.nullcontext():
+            measure("unfused", f"unfused ({turn} P2G)")
+    measure("fused", "fused")
 
 
 def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES, n_cams: int = 5):
@@ -590,21 +693,21 @@ def phase_blend(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES):
         fail("the blend scene is nearly transparent: nothing was tested")
     k_ms, p_ms = cuda_ms(lambda: gs_stream.blend(*args)), cuda_ms(
         lambda: gs_stream.blend_plain(*args))
-    b = _blend_bound(bins, res, outputs=res * res * 16, walks=1)
+    b = _blend_bound(bins, pixel_bytes=16, out_bytes=0)   # writes img and T
     print(f"gs_blend: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 CUDA-event "
           f"timings, {res}x{res}, tile_cap 512); bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})", flush=True)
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}
 
 
-def _blend_bound(bins, res: int, outputs: int, walks: int) -> dict:
-    """Bound of a tile blend over these bins: feat, idx, starts, counts and the
-    per-pixel inputs read once, `outputs` bytes written; BLEND_PAIR_OPS for
-    each (pixel, entry) pair a walk visits, 256 pixels a tile."""
+def _blend_bound(bins, pixel_bytes: int, out_bytes: int) -> dict:
+    """Bound of one walk of a tile blend over these bins: feat, idx, starts,
+    counts read once, `pixel_bytes` read or written a pixel (256 a tile),
+    `out_bytes` more written; BLEND_PAIR_OPS for each (pixel, entry) pair."""
     n_pairs = 256 * int(bins.counts.sum())
     n_bytes = (4 * bins.feat.numel() + 4 * bins.idx.numel() + 8 * bins.starts.numel()
-               + outputs)
-    return bound(n_bytes, walks * BLEND_PAIR_OPS * n_pairs)
+               + pixel_bytes * 256 * bins.starts.numel() + out_bytes)
+    return bound(n_bytes, BLEND_PAIR_OPS * n_pairs)
 
 
 def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
@@ -626,15 +729,22 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
     d_img = torch.randn((res, res, 3), device=dev, generator=g)
     d_trans = torch.randn((res, res), device=dev, generator=g)
     args = (bins.feat, bins.idx, bins.starts, bins.counts, bins.tx_n, 0.3, d_img, d_trans)
+    # the forward's state (colour before the background, final T), which the
+    # backward kernel reads as training's autograd hands it over
+    state = gs_stream.blend_forward(*args[:6], keep_state=True)[2]
+
+    def kernel(*a):
+        return gs_stream.blend_backward(*a, state)
+
     peaks = []
-    for fn in (gs_stream.blend_backward, gs_stream.blend_backward_plain):
+    for fn in (kernel, gs_stream.blend_backward_plain):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         out = fn(*args)
         torch.cuda.synchronize()
         peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
-        if fn is gs_stream.blend_backward:
+        if fn is kernel:
             d_k = out
         else:
             d_p = out
@@ -649,16 +759,49 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
     print("blend backward: max |plain| per column: " + " ".join(f"{v:.3e}" for v in scale.tolist()))
     if not all(r <= BWD_RTOL for r in rel) or not bool(torch.isfinite(d_k).all()):
         fail("gs blend backward kernel disagrees with its plain version")
-    k_ms = cuda_ms(lambda: gs_stream.blend_backward(*args))
+    # the pass1 ablation must still agree: the ablation below is read against it
+    prev = gs_stream.blend_backward_variant("pass1", *args, state)
+    rel_prev = ((prev - d_p).abs().max(0).values / scale).tolist()
+    print("blend backward (pass1): per-column max_abs_err / max |plain|: "
+          + " ".join(f"{r:.2e}" for r in rel_prev))
+    if not all(r <= BWD_RTOL for r in rel_prev):
+        fail("the pass1 blend backward disagrees with its plain version")
+    k_ms = cuda_ms(lambda: kernel(*args))
     p_ms = cuda_ms(lambda: gs_stream.blend_backward_plain(*args), reps=5, warmup=1)
-    # reads d img and d trans (16 B a pixel), writes d feat
-    b = _blend_bound(bins, res, outputs=res * res * 16 + 4 * bins.feat.numel(), walks=2)
+    # one walk; reads d img, d trans (16 B a pixel) and the forward's state
+    # (32 B a pixel), writes d feat
+    b = _blend_bound(bins, pixel_bytes=16 + 32, out_bytes=4 * bins.feat.numel())
+    # the walk stops early only behind pixels whose T reached exactly 0: the
+    # bound counts every (pixel, entry) pair, which this share qualifies
+    opaque = float((gs_stream.blend_forward(*args[:6])[1] == 0.0).double().mean())
     print(f"gs_blend_backward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 / 5 "
-          f"CUDA-event timings); bound {b['bound_ms']:.4f} ms ({b['bound_by']}); peak device "
+          f"CUDA-event timings); bound {b['bound_ms']:.4f} ms ({b['bound_by']}; share of "
+          f"pixels whose T reaches 0: {opaque:.4f}); peak device "
           f"memory above the inputs: kernel {peaks[0]:.1f} MiB, plain {peaks[1]:.1f} MiB",
           flush=True)
+    # the ablation and the forward that feeds the state, against the shipped
+    # kernel, in turns
+    ablation = {"shipped": k_ms}
+    for mode in gs_stream.BWD_MODES:
+        ablation[mode] = cuda_ms(lambda m=mode: gs_stream.blend_backward_variant(m, *args,
+                                                                                 state))
+    ablation["shipped (again)"] = cuda_ms(lambda: kernel(*args))
+    fwd = {"no_state": cuda_ms(lambda: gs_stream.blend_forward(*args[:6])),
+           "keep_state": cuda_ms(lambda: gs_stream.blend_forward(*args[:6], keep_state=True))}
+    fwd["no_state (again)"] = cuda_ms(lambda: gs_stream.blend_forward(*args[:6]))
+    print("gs_blend_backward ablation, ms (median of 30 CUDA-event timings, same inputs): "
+          + ", ".join(f"{m} {t:.4f}" for m, t in ablation.items()), flush=True)
+    a = ablation
+    print(f"B4 attribution: {k_ms:.4f} ms; per-entry reduction ~ shipped - noreduce = "
+          f"{k_ms - a['noreduce']:.4f} ms; pass 1 replaced by the forward's state ~ pass1 - "
+          f"shipped = {a['pass1'] - k_ms:.4f} ms", flush=True)
+    print(f"B3 at B4's shapes (tile_cap {tile_cap}), ms: without the state {fwd['no_state']:.4f} "
+          f"/ {fwd['no_state (again)']:.4f}, keeping it (as training runs it) "
+          f"{fwd['keep_state']:.4f}; a training step's pair: forward with state + backward "
+          f"{fwd['keep_state'] + k_ms:.4f} against forward without state + pass1 backward "
+          f"{fwd['no_state'] + a['pass1']:.4f}", flush=True)
     return {"max_abs_err": float(err.max()), "ms": k_ms, "plain_ms": p_ms, **b,
-            "library_ms": None}
+            "library_ms": None, "ablation_ms": ablation, "forward_ms": fwd}
 
 
 def phase_probes(dev, n: int = N_PARTICLES, t: int = 8192, l: int = 128) -> tuple[dict, dict]:
@@ -998,8 +1141,83 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
                 fail(f"{p.name}: non-finite or missing positions (fused point cloud)")
         if not info_pf["final_state_finite"]:
             fail("non-finite positions after the last fused point-cloud substep")
+        # (d) particle filling: a GS rollout of the sand config, which fills
+        launches_fill = _filling_rollout(dev, root, ply, gs_dir, res)
         return {"point_cloud": pc_launches, "gs": launches, "gs_fused": launches_f,
-                "point_cloud_fused": launches_pf}
+                "point_cloud_fused": launches_pf, "gs_filling": launches_fill}
+
+
+FILL_SUBSTEPS = 20
+
+
+def _filling_rollout(dev, root: Path, ply: Path, gs_dir: Path, res: int) -> dict:
+    """One GS rollout of a copy of config/objaverse/custom_sand_config.json
+    (particle_filling: fill grid 100, sim n_grid 200), cut to one frame of
+    FILL_SUBSTEPS substeps, rendered once with gs_dir's cameras.  The
+    gaussians are the outer half (by distance from their mean) of the
+    seeded model that phase 5's capture was rendered from, not phase 5's
+    checkpoint: that model is a solid ball, which leaves no empty cell to
+    fill, while a capture's trained model has its gaussians on the surface;
+    and the checkpoint's opacities still carry the reset of iteration 250,
+    so its density stays under the config's search threshold (printed).
+    The filled count must be positive and the state finite.  Returns the
+    path's launches."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.recon.gaussians import load_gaussian_ply, save_gaussian_ply
+    from pixie_tpu_torch.recon.train_gaussians import search_for_max_iteration
+    from pixie_tpu_torch.sim.params import decode_param_json
+
+    it = search_for_max_iteration(gs_dir / "point_cloud")
+    trained = torch.sigmoid(load_gaussian_ply(
+        gs_dir / "point_cloud" / f"iteration_{it}" / "point_cloud.ply")["opacity"])
+    params = {k: v.cpu() for k, v in _gs_model(dev, N_GAUSSIANS, res)[0].items()}
+    r = (params["xyz"] - params["xyz"].mean(0)).norm(dim=1)
+    outer = r > r.median()
+    shell = root / "gs_shell"
+    (shell / "point_cloud" / "iteration_1").mkdir(parents=True)
+    save_gaussian_ply(shell / "point_cloud" / "iteration_1" / "point_cloud.ply",
+                      {k: v[outer] for k, v in params.items()})
+    (shell / "cameras.json").write_bytes((gs_dir / "cameras.json").read_bytes())
+    print(f"filling rollout: phase 5's checkpoint (iteration {it}) has opacities of median "
+          f"{float(trained.median()):.4f}, {float((trained > 0.1).float().mean()):.3f} of them "
+          f"above 0.1; the rollout takes the {int(outer.sum())} of {len(outer)} gaussians of "
+          f"the capture's seeded model farther than the median {float(r.median()):.3f} from "
+          f"their mean", flush=True)
+    cfg = json.loads((HERE / "config" / "objaverse" / "custom_sand_config.json").read_text())
+    print(f"filling rollout: custom_sand_config.json cut from frame_dt {cfg['frame_dt']} "
+          f"({round(cfg['frame_dt'] / cfg['substep_dt'])} substeps) x {cfg['frame_num']} frames "
+          f"to {FILL_SUBSTEPS} substeps x 1 frame; particle_filling as shipped "
+          f"({json.dumps(cfg['particle_filling'])})", flush=True)
+    cfg["frame_dt"] = FILL_SUBSTEPS * cfg["substep_dt"]
+    cfg_path = root / "custom_sand_config_cut.json"
+    cfg_path.write_text(json.dumps(cfg))
+    _reset_counts()
+    out = root / "sim_gs_filling"
+    t0 = time.time()
+    info = pipeline.run_physics_simulation(ply, cfg_path, out, n_frames=1, debug=True,
+                                           gaussian_checkpoint=shell, render_img=True,
+                                           device=dev)
+    launches = _read_counts()
+    s = info["substeps_per_frame"]
+    print(f"filling rollout: {info['n_particles']} particles = "
+          f"{info['n_particles'] - info['n_filled']} gaussians + {info['n_filled']} filled; "
+          f"n_grid {decode_param_json(cfg_path)[0]['n_grid']}, 1 frame x {s} substeps, "
+          f"materials {info['active_materials']}, {time.time() - t0:.1f} s with setup; "
+          f"launches {launches}", flush=True)
+    if not info["n_filled"] > 0:
+        fail("particle filling added no particle")
+    if not info["final_state_finite"]:
+        fail("non-finite positions after the filled rollout")
+    if s != FILL_SUBSTEPS or launches != _counts(p2g=s, g2p=s, gs_blend=1):
+        fail(f"filling rollout launches {launches} != {FILL_SUBSTEPS} substeps and 1 render")
+    _check_gs_run(out, {**info, "n_particles": info["n_particles"] - info["n_filled"],
+                        "final_state_finite": info["final_state_finite"]}, 1, res)
+    if not np.isfinite(info["median_frame_s"]):
+        fail("no frame time for the filled rollout")
+    return launches
 
 
 def _check_gs_run(gs_out: Path, info: dict, n_frames: int, res: int) -> None:
@@ -1065,6 +1283,8 @@ def main() -> int:
     phase_profile(dev)
     kern["gs_blend"] = phase_blend(dev)
     kern["gs_blend_backward"] = phase_blend_backward(dev)
+    # what training's launches of B3 run: tile_cap 1024, keeping the state
+    kern["gs_blend"]["training_ms"] = kern["gs_blend_backward"].pop("forward_ms")
     probe_rows, probe_launches = phase_probes(dev)
     kern.update(probe_rows)
     with tempfile.TemporaryDirectory(prefix="pixie_smoke_train_") as tmp:

@@ -6,8 +6,8 @@
 // Every function is a term-for-term port of the package's PyTorch code, so
 // the kernels compute what the plain versions compute:
 //   spline_weights   ops/transfer.py:_spline_weights
-//   p2g_particle     ops/transfer.py:p2g_contributions (and the ablations
-//                    of ops/probe_ablation.py)
+//   p2g_nodes,       ops/transfer.py:p2g_contributions (and the ablations
+//   p2g_particle     of ops/probe_ablation.py)
 //   svd3             sim/svd3.py:svd3 (cyclic Jacobi on F^T F, sorting
 //                    network, Gram-Schmidt with cross completion, Warp's
 //                    sign convention; every threshold as written there)
@@ -61,9 +61,14 @@ __device__ __forceinline__ Spline spline_weights(const float* xp, float inv_dx) 
 // P2G of particle p: the APIC splat of mass, m (v + C dpos) and
 // -vol dt sigma grad(w) onto the 27 nodes around it, with the RPIC / PIC
 // damping of C; out-of-grid nodes are dropped (sim/solver.py:60-128).
-// kP2GFull is the shipped splat, p2g_kernel of transfer.cu.  The other
-// modes are the ablations that the P1 probe times (probe_ablation.cu), each
-// differing from it only by what it removes:
+// p2g_nodes computes each in-grid node's contribution (with kAllNodes,
+// every node's) and hands it to a sink, sink(gi, gj, gk, momentum x, y, z,
+// mass): the binned P2G of transfer.cu (B1) sums it over a run of lanes
+// first, p2g_particle adds it into the global grid or registers.
+// p2g_particle<kP2GFull> is the one-thread-per-particle splat with 108
+// global atomics that B1 ran until it was binned; the other modes are the
+// ablations that the P1 probe times (probe_ablation.cu), each differing
+// from it only by what it removes:
 //   kP2GNoWeights  the per-node weight, weight gradient and APIC offset are
 //                  the constant kAblate (offset kAblate dx, gradient
 //                  kAblate inv_dx); the base cell still comes from x and
@@ -77,6 +82,96 @@ __device__ __forceinline__ Spline spline_weights(const float* xp, float inv_dx) 
 // ---------------------------------------------------------------------------
 enum P2GMode : int { kP2GFull = 0, kP2GNoWeights = 1, kP2GNoAtomics = 2, kP2GMinimal = 3 };
 constexpr float kAblate = 0.1f;
+
+template <int kMode, bool kAllNodes = false, class Sink>
+__device__ __forceinline__ void p2g_nodes(int p, const float* __restrict__ x,
+                                          const float* __restrict__ v,
+                                          const float* __restrict__ C,
+                                          const float* __restrict__ stress,
+                                          const float* __restrict__ mass,
+                                          const float* __restrict__ vol, int n_grid, float dx,
+                                          float inv_dx, float dt, float rpic_damping,
+                                          Sink&& sink) {
+  // kP2GNoWeights reads only s.base: the rest of the stencil is dead code
+  const Spline s = spline_weights(x + 3 * p, inv_dx);
+
+  // RPIC / PIC damping of C (solver.py:73-80)
+  float c[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c[k] = C[9 * p + k];
+  if (rpic_damping < -0.001f) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) c[k] = 0.0f;
+  } else if (rpic_damping != 0.0f) {
+    float d[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        d[3 * i + j] = (1.0f - rpic_damping) * c[3 * i + j] +
+                       rpic_damping / 2.0f * (c[3 * i + j] - c[3 * j + i]);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) c[k] = d[k];
+  }
+
+  const float m = mass[p];
+  const float nvol = -vol[p];
+  float sc[9];  // -vol * stress * dt
+#pragma unroll
+  for (int k = 0; k < 9; ++k) sc[k] = nvol * stress[9 * p + k] * dt;
+  const float vx = v[3 * p], vy = v[3 * p + 1], vz = v[3 * p + 2];
+
+  // kAllNodes visits out-of-grid nodes too (the sink drops them), so that
+  // every lane of a warp calls the sink 27 times
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int gi = s.base[0] + i;
+    if (!kAllNodes && (gi < 0 || gi >= n_grid)) continue;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int gj = s.base[1] + j;
+      if (!kAllNodes && (gj < 0 || gj >= n_grid)) continue;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int gk = s.base[2] + k;
+        if (!kAllNodes && (gk < 0 || gk >= n_grid)) continue;
+        float weight, g0, g1, g2, d0, d1, d2;
+        if constexpr (kMode == kP2GNoWeights) {
+          weight = kAblate;
+          g0 = g1 = g2 = kAblate * inv_dx;
+          d0 = d1 = d2 = kAblate * dx;
+        } else {
+          const float wx = s.w[0][i], wy = s.w[1][j], wz = s.w[2][k];
+          weight = wx * wy * wz;
+          g0 = s.dw[0][i] * wy * wz * inv_dx;
+          g1 = wx * s.dw[1][j] * wz * inv_dx;
+          g2 = wx * wy * s.dw[2][k] * inv_dx;
+          d0 = (static_cast<float>(i) - s.fx[0]) * dx;
+          d1 = (static_cast<float>(j) - s.fx[1]) * dx;
+          d2 = (static_cast<float>(k) - s.fx[2]) * dx;
+        }
+        const float ax = vx + (c[0] * d0 + c[1] * d1 + c[2] * d2);
+        const float ay = vy + (c[3] * d0 + c[4] * d1 + c[5] * d2);
+        const float az = vz + (c[6] * d0 + c[7] * d1 + c[8] * d2);
+        const float mx = weight * (m * ax) + (sc[0] * g0 + sc[1] * g1 + sc[2] * g2);
+        const float my = weight * (m * ay) + (sc[3] * g0 + sc[4] * g1 + sc[5] * g2);
+        const float mz = weight * (m * az) + (sc[6] * g0 + sc[7] * g1 + sc[8] * g2);
+        sink(gi, gj, gk, mx, my, mz, weight * m);
+      }
+    }
+  }
+}
+
+// one float atomicAdd per component into the (G^3, 4) grid
+__device__ __forceinline__ void atomic_add_node(float* __restrict__ grid, int n_grid, int gi,
+                                                int gj, int gk, float mx, float my, float mz,
+                                                float wm) {
+  float* node = grid + 4 * ((static_cast<int64_t>(gi) * n_grid + gj) * n_grid + gk);
+  atomicAdd(node + 0, mx);
+  atomicAdd(node + 1, my);
+  atomicAdd(node + 2, mz);
+  atomicAdd(node + 3, wm);
+}
 
 template <int kMode>
 __device__ __forceinline__ void p2g_particle(int p, const float* __restrict__ x,
@@ -106,89 +201,22 @@ __device__ __forceinline__ void p2g_particle(int p, const float* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < 9; ++k) acc += stress[9 * p + k];
     out[p] = (acc + mass[p]) + vol[p];
-    return;
-  }
-
-  // kP2GNoWeights reads only s.base: the rest of the stencil is dead code
-  const Spline s = spline_weights(x + 3 * p, inv_dx);
-
-  // RPIC / PIC damping of C (solver.py:73-80)
-  float c[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) c[k] = C[9 * p + k];
-  if (rpic_damping < -0.001f) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) c[k] = 0.0f;
-  } else if (rpic_damping != 0.0f) {
-    float d[9];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        d[3 * i + j] = (1.0f - rpic_damping) * c[3 * i + j] +
-                       rpic_damping / 2.0f * (c[3 * i + j] - c[3 * j + i]);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) c[k] = d[k];
-  }
-
-  const float m = mass[p];
-  const float nvol = -vol[p];
-  float sc[9];  // -vol * stress * dt
-#pragma unroll
-  for (int k = 0; k < 9; ++k) sc[k] = nvol * stress[9 * p + k] * dt;
-  const float vx = v[3 * p], vy = v[3 * p + 1], vz = v[3 * p + 2];
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // kP2GNoAtomics
-
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int gi = s.base[0] + i;
-    if (gi < 0 || gi >= n_grid) continue;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int gj = s.base[1] + j;
-      if (gj < 0 || gj >= n_grid) continue;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int gk = s.base[2] + k;
-        if (gk < 0 || gk >= n_grid) continue;
-        float weight, g0, g1, g2, d0, d1, d2;
-        if constexpr (kMode == kP2GNoWeights) {
-          weight = kAblate;
-          g0 = g1 = g2 = kAblate * inv_dx;
-          d0 = d1 = d2 = kAblate * dx;
-        } else {
-          const float wx = s.w[0][i], wy = s.w[1][j], wz = s.w[2][k];
-          weight = wx * wy * wz;
-          g0 = s.dw[0][i] * wy * wz * inv_dx;
-          g1 = wx * s.dw[1][j] * wz * inv_dx;
-          g2 = wx * wy * s.dw[2][k] * inv_dx;
-          d0 = (static_cast<float>(i) - s.fx[0]) * dx;
-          d1 = (static_cast<float>(j) - s.fx[1]) * dx;
-          d2 = (static_cast<float>(k) - s.fx[2]) * dx;
-        }
-        const float ax = vx + (c[0] * d0 + c[1] * d1 + c[2] * d2);
-        const float ay = vy + (c[3] * d0 + c[4] * d1 + c[5] * d2);
-        const float az = vz + (c[6] * d0 + c[7] * d1 + c[8] * d2);
-        const float mx = weight * (m * ax) + (sc[0] * g0 + sc[1] * g1 + sc[2] * g2);
-        const float my = weight * (m * ay) + (sc[3] * g0 + sc[4] * g1 + sc[5] * g2);
-        const float mz = weight * (m * az) + (sc[6] * g0 + sc[7] * g1 + sc[8] * g2);
-        if constexpr (kMode == kP2GNoAtomics) {
-          acc[0] += mx;
-          acc[1] += my;
-          acc[2] += mz;
-          acc[3] += weight * m;
-        } else {
-          float* node = grid + 4 * ((static_cast<int64_t>(gi) * n_grid + gj) * n_grid + gk);
-          atomicAdd(node + 0, mx);
-          atomicAdd(node + 1, my);
-          atomicAdd(node + 2, mz);
-          atomicAdd(node + 3, weight * m);
-        }
-      }
-    }
-  }
-  if constexpr (kMode == kP2GNoAtomics)
+  } else if constexpr (kMode == kP2GNoAtomics) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    p2g_nodes<kMode>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt, rpic_damping,
+                     [&](int, int, int, float mx, float my, float mz, float wm) {
+                       acc[0] += mx;
+                       acc[1] += my;
+                       acc[2] += mz;
+                       acc[3] += wm;
+                     });
     reinterpret_cast<float4*>(out)[p] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    p2g_nodes<kMode>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt, rpic_damping,
+                     [&](int gi, int gj, int gk, float mx, float my, float mz, float wm) {
+                       atomic_add_node(grid, n_grid, gi, gj, gk, mx, my, mz, wm);
+                     });
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 // The P2G ablation probe for NVIDIA Hopper (sm_90a): four variants of the
-// shipped P2G splat (transfer.cu p2g_kernel), timed side by side to
-// attribute its cost to weight math, atomics and load/launch overhead.
+// one-thread-per-particle P2G splat (mpm.cuh p2g_particle, which B1 ran
+// before transfer.cu binned it), timed side by side to attribute its cost
+// to weight math, atomics and load/launch overhead.
 //
 // Replaces scripts/probe_kernel_ablation.py:112, the pallas_call of
 // kernel_variant (:47), which ablated the TPU's P2G body on its tile-sorted
@@ -11,11 +12,13 @@
 //
 // Each variant is one thread per particle on the port's AoS inputs (x, v,
 // C, stress, mass, vol, active) and is mpm.cuh's p2g_particle<kMode>, so
-// every one differs from the shipped kernel only by what its mode removes.
+// every one differs from full only by what its mode removes.
 // The TPU's tile-sorted blocks, window factors and MXU contraction are not
 // carried over: the Hopper splat has none of them to ablate.
 //
-//   full       the shipped B1 body (p2g_particle<kP2GFull>, as p2g_kernel).
+//   full       the unbinned B1 splat (p2g_particle<kP2GFull>), 108 global
+//              atomics a particle; transfer.cu's binned p2g shares its node
+//              math (mpm.cuh p2g_nodes) and not its atomics.
 //              Bound: the 108 float atomics a particle into the L2-resident
 //              grid, and their contention where particles share a cell.
 //   noweights  replaces the TPU's `nopairs` (probe_kernel_ablation.py:63-67,

@@ -7,7 +7,7 @@
 //
 // The arithmetic follows pixie_tpu/sim/solver.py (p2g :60-128, g2p :171-220)
 // term for term.  The B-spline stencil (spline_weights) is shared with
-// the fused substep, and the per-particle splat (p2g_particle) with the P2G
+// the fused substep, and the per-node splat math (p2g_nodes) with the P2G
 // ablation probe (probe_ablation.cu), through mpm.cuh.
 
 #include <cuda_runtime.h>
@@ -26,37 +26,161 @@ using pixie::spline_weights;
 // P2G.  Replaces pixie_tpu/ops/transfer.py:p2g_tiled_t (_p2g_kernel_t), and
 // with it the AoS variant p2g_tiled (_p2g_kernel): the quadratic B-spline
 // APIC splat of mass, m(v + C dpos) and -vol dt sigma grad(w) onto the 27
-// nodes around each particle.
+// nodes around each particle, into a zeroed (G^3, 4) grid; out-of-grid
+// nodes are dropped (solver.py:112-118).
 //
-// Design: one thread per particle, 27 nodes x 4 float atomicAdds into a
-// zeroed (G^3, 4) grid; out-of-grid nodes are dropped (solver.py:112-118).
-// The body is mpm.cuh's p2g_particle<kP2GFull>, which the P1 probe's `full`
-// variant instantiates too, so the probe's ablations measure this kernel.
-// The TPU kernel's tile-sorted layout, one-hot window factors and MXU
-// contractions existed because the TPU serializes scatters; Hopper has
-// native global atomics, so none of that is carried over.
+// Bound: the work is 108 float adds a particle into a 2 MB grid (n_grid
+// 50) that stays in the 50 MB L2, so neither DRAM nor the arithmetic
+// bounds it.  The one-thread-per-particle splat (mpm.cuh p2g_particle, the
+// P1 probe's `full`) spent 95 % of its time in its 108 global atomics a
+// particle (0.2143 of 0.2259 ms at 100k particles, NVIDIA H100 80GB HBM3,
+// 700 W), and sorting the particles by cell made it 22 % slower: lanes of a
+// warp then hit one address and the L2 serializes them.
 //
-// Bound: atomic throughput and contention.  At 100k particles this is
-// 10.8 M global float atomics a substep into a grid of 2 MB (n_grid 50) that
-// stays resident in the 50 MB L2, so DRAM bandwidth is not the limit; the
-// L2 atomic units are, and more so where many particles share a cell.
-// Later work: sort particles by cell and pre-reduce in shared memory before
-// the global atomics.
+// Design: cut the atomics, not the math.
+//   1. p2g_keys_kernel gives each particle a bin key: its base cell in a
+//      bin of kBin^3 base cells (base + 2, so the lowest base cell with an
+//      in-grid node, -2, is bin coordinate 0), shifted left by hbits, and
+//      in the low bits the cell within the bin above a multiplicative hash
+//      of the particle index.  Inactive particles, and those whose stencil
+//      reaches no in-grid node or whose position is not finite, get the
+//      largest key and splat nothing.  The wrapper sorts the keys with
+//      torch.sort, as JAX's resort sits outside its Pallas kernel; the
+//      particle arrays are read through the permutation, never reordered.
+//   2. p2g_binned_kernel: block b takes sorted positions [256 b, 256 b +
+//      256), one particle a thread, so the lanes of a warp hold particles
+//      of few cells, each cell's lanes adjacent.
+//      Every lane computes its 27 nodes' values (mpm.cuh p2g_nodes, the
+//      same math as the unbinned splat); each run of lanes that share a
+//      base cell, and so all 27 nodes, sums them with 5 shuffles a value
+//      (an inclusive segmented scan), and the run's last lane adds the sums
+//      into the grid with one global atomic per (node, component), dropping
+//      out-of-grid nodes.  The runs come from each lane's own base cell, so
+//      the result does not depend on the order: the sort only makes runs
+//      long.  At 6.4 particles a cell a warp spans ~6 cells, ~20 atomics a
+//      particle; at 45 a cell ~4.
+// The shared-memory tile of the first design did not pay on this card: a
+// block adding its bin's particles into a tile of (kBin + 2)^3 nodes x 4
+// floats and flushing it with one global atomic per nonzero value.  sm_90
+// has no shared-memory float add: nvcc emits each as an ATOMS.CAST.SPIN
+// compare-and-swap loop (cuobjdump -sass), where the global one is a single
+// REDG.E.ADD.F32.  Device ms at 100k particles, each with its key kernel,
+// torch.sort and memset, as chip_smoke.py timed them while they were kept
+// (one run, NVIDIA H100 80GB HBM3, 700 W): a lane a
+// particle into the tile 0.2416 / 0.2067 / 0.3087, runs into the tile
+// 0.1389 / 0.1337 / 0.1236, runs into the grid (shipped) 0.1044 / 0.0994 /
+// 0.0945, for the random state (6.4 a cell) / the same cell-sorted / P1's
+// state (45 a cell), against the unbinned splat's 0.1569 / 0.1472 /
+// 0.2258; torch.sort took 0.064 ms of each.  The tiles were then deleted.
 // ---------------------------------------------------------------------------
-__global__ void p2g_kernel(const float* __restrict__ x,
-                           const float* __restrict__ v,
-                           const float* __restrict__ C,
-                           const float* __restrict__ stress,
-                           const float* __restrict__ mass,
-                           const float* __restrict__ vol,
-                           const uint8_t* __restrict__ active,
-                           float* __restrict__ grid,
-                           int n, int n_grid, float dx, float inv_dx, float dt,
-                           float rpic_damping) {
+constexpr int kBin = 4;                                  // base cells a bin side
+constexpr int kCellBits = 6;                             // cells of a bin: kBin^3 = 64
+constexpr uint32_t kHashMul = 2654435761u;               // Knuth's multiplicative hash
+constexpr unsigned kFull = 0xffffffffu;
+
+// keys: bin << hbits | low, low the cell within the bin above the top bits
+// of a hash of the particle index
+__global__ void p2g_keys_kernel(const float* __restrict__ x, const uint8_t* __restrict__ active,
+                                int n, int n_grid, float inv_dx, int nb, int hbits,
+                                int32_t* __restrict__ keys) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  pixie::p2g_particle<pixie::kP2GFull>(p, x, v, C, stress, mass, vol, active, grid, nullptr,
-                                       n_grid, dx, inv_dx, dt, rpic_damping);
+  const int32_t none = (nb * nb * nb) << hbits;
+  const float* xp = x + 3 * p;
+  constexpr float kMax = 3.402823466e38f;  // |x| <= FLT_MAX: false for NaN and inf
+  if (!active[p] || !(fabsf(xp[0]) <= kMax && fabsf(xp[1]) <= kMax && fabsf(xp[2]) <= kMax)) {
+    keys[p] = none;
+    return;
+  }
+  const Spline s = spline_weights(xp, inv_dx);  // the base cell p2g_nodes splats from
+  int bin = 0, cell = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (s.base[a] < -2 || s.base[a] > n_grid - 1) {  // no node of the stencil in the grid
+      keys[p] = none;
+      return;
+    }
+    bin = bin * nb + (s.base[a] + 2) / kBin;
+    cell = cell * kBin + (s.base[a] + 2) % kBin;
+  }
+  const int hash_bits = hbits - kCellBits;
+  uint32_t low = hash_bits > 0 ? (static_cast<uint32_t>(p) * kHashMul) >> (32 - hash_bits) : 0u;
+  low |= static_cast<uint32_t>(cell) << hash_bits;
+  keys[p] = (bin << hbits) | static_cast<int32_t>(low);
+}
+
+// flat index of the cell of base + 2, unique over the grid: the run label
+__device__ __forceinline__ int base_cell(const float* xp, float inv_dx, int n_grid) {
+  const Spline s = spline_weights(xp, inv_dx);
+  const int side = n_grid + 2;
+  return ((s.base[0] + 2) * side + (s.base[1] + 2)) * side + (s.base[2] + 2);
+}
+
+// Runs of equal labels among the warp's lanes (labels sorted, so equal ones
+// are adjacent): the first lane of this lane's run, and whether it is the
+// run's last lane.
+struct Run {
+  int first;
+  bool last;
+};
+
+__device__ __forceinline__ Run lane_run(int label, int lane) {
+  const int prev = __shfl_up_sync(kFull, label, 1);
+  const int next = __shfl_down_sync(kFull, label, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != label);
+  return {31 - __clz(heads & (kFull >> (31 - lane))), lane == 31 || next != label};
+}
+
+// inclusive sum over the lanes of the run up to this one: the run's total
+// at its last lane (5 shuffles)
+__device__ __forceinline__ float run_sum(float v, int lane, int first) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(kFull, v, off);
+    if (lane - off >= first) v += u;
+  }
+  return v;
+}
+
+__device__ __forceinline__ bool in_grid(int gi, int gj, int gk, int n_grid) {
+  return gi >= 0 && gi < n_grid && gj >= 0 && gj < n_grid && gk >= 0 && gk < n_grid;
+}
+
+// sink of p2g_nodes<kP2GFull, true>: each node's four values summed over
+// the lane's run, added into the grid by the run's last lane where the node
+// is in the grid
+struct RunSink {
+  bool live;
+  Run run;
+  int lane, n_grid;
+  float* grid;
+  __device__ __forceinline__ void operator()(int gi, int gj, int gk, float mx, float my,
+                                             float mz, float wm) const {
+    const float s0 = run_sum(live ? mx : 0.0f, lane, run.first);
+    const float s1 = run_sum(live ? my : 0.0f, lane, run.first);
+    const float s2 = run_sum(live ? mz : 0.0f, lane, run.first);
+    const float s3 = run_sum(live ? wm : 0.0f, lane, run.first);
+    if (live && run.last && in_grid(gi, gj, gk, n_grid))
+      pixie::atomic_add_node(grid, n_grid, gi, gj, gk, s0, s1, s2, s3);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+p2g_binned_kernel(const int32_t* __restrict__ keys, const int64_t* __restrict__ perm,
+                  const float* __restrict__ x, const float* __restrict__ v,
+                  const float* __restrict__ C, const float* __restrict__ stress,
+                  const float* __restrict__ mass, const float* __restrict__ vol,
+                  float* __restrict__ grid, int n, int n_grid, int nb, int hbits, float dx,
+                  float inv_dx, float dt, float rpic_damping) {
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kThreads + threadIdx.x;
+  const int nbins = nb * nb * nb;
+  const bool live = q < n && (keys[q] >> hbits) < nbins;
+  if (!__any_sync(kFull, live)) return;
+  const int p = live ? static_cast<int>(perm[q]) : 0;
+  const Run run = lane_run(live ? base_cell(x + 3 * p, inv_dx, n_grid) : -1 - lane, lane);
+  pixie::p2g_nodes<pixie::kP2GFull, true>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt,
+                                          rpic_damping, RunSink{live, run, lane, n_grid, grid});
 }
 
 // ---------------------------------------------------------------------------
@@ -185,13 +309,26 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 extern "C" {
 
-int pixie_p2g(const float* x, const float* v, const float* C, const float* stress,
-              const float* mass, const float* vol, const uint8_t* active,
-              float* grid, int n, int n_grid, float dx, float inv_dx, float dt,
-              float rpic_damping, void* stream) {
+// bin keys (N,) int32 for p2g: nb bins a side, hbits low bits (the cell
+// within the bin in their top 6)
+int pixie_p2g_keys(const float* x, const uint8_t* active, int32_t* keys, int n, int n_grid,
+                   float inv_dx, int nb, int hbits, void* stream) {
   if (n > 0) {
-    p2g_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, v, C, stress, mass, vol, active, grid, n, n_grid, dx, inv_dx, dt,
+    p2g_keys_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, active, n, n_grid, inv_dx, nb, hbits, keys);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the splat, over the keys sorted ascending and their permutation (int64,
+// as torch.sort returns it), into grid (G^3, 4) zeroed by the caller
+int pixie_p2g(const int32_t* keys, const int64_t* perm, const float* x, const float* v,
+              const float* C, const float* stress, const float* mass, const float* vol,
+              float* grid, int n, int n_grid, int nb, int hbits, float dx, float inv_dx,
+              float dt, float rpic_damping, void* stream) {
+  if (n > 0) {
+    p2g_binned_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        keys, perm, x, v, C, stress, mass, vol, grid, n, n_grid, nb, hbits, dx, inv_dx, dt,
         rpic_damping);
   }
   return static_cast<int>(cudaGetLastError());

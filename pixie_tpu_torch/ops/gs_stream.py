@@ -44,6 +44,9 @@ ALPHA_MAX = 0.99
 
 BLEND_LAUNCHES = 0
 BLEND_BWD_LAUNCHES = 0
+# ablation modes of the backward kernel (csrc/gs_stream.cu flags): timed by
+# chip_smoke.py, called by no path of the port
+BWD_MODES = {"noreduce": 2, "pass1": 4}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -52,10 +55,10 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("gs_stream")
     if not getattr(lib, "_pixie_typed", False):
         lib.pixie_gs_blend.argtypes = [_c_void_p] * 4 + [_c_int] * 4 + [
-            _c_float, _c_void_p, _c_void_p, _c_void_p]
+            _c_float] + [_c_void_p] * 4
         lib.pixie_gs_blend.restype = _c_int
-        lib.pixie_gs_blend_backward.argtypes = [_c_void_p] * 4 + [_c_int] * 4 + [
-            _c_float, _c_void_p, _c_void_p, _c_void_p, _c_void_p]
+        lib.pixie_gs_blend_backward.argtypes = [_c_int] + [_c_void_p] * 4 + [_c_int] * 4 + [
+            _c_float] + [_c_void_p] * 6
         lib.pixie_gs_blend_backward.restype = _c_int
         lib.pixie_error_string.argtypes = [_c_int]
         lib.pixie_error_string.restype = ctypes.c_char_p
@@ -208,10 +211,19 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def blend_forward(feat, idx, starts, counts, tx_n: int, bg: float = 0.0):
-    """The blend without autograd: (img (H,W,3), trans (H,W))."""
+def blend_forward(feat, idx, starts, counts, tx_n: int, bg: float = 0.0,
+                  keep_state: bool = False):
+    """The blend without autograd: (img (H,W,3), trans (H,W)), and with
+    ``keep_state`` also the state (H*W, 4) float64 that the backward kernel
+    reads on CUDA tensors (None on CPU tensors): each pixel's colour before
+    the background, summed in double, and its final T."""
+    img, trans, state = _blend_forward(feat, idx, starts, counts, tx_n, bg, keep_state)
+    return (img, trans, state) if keep_state else (img, trans)
+
+
+def _blend_forward(feat, idx, starts, counts, tx_n: int, bg: float, keep_state: bool):
     if feat.device.type == "cpu":
-        return blend_plain(feat, idx, starts, counts, tx_n, bg)
+        return (*blend_plain(feat, idx, starts, counts, tx_n, bg), None)
     if feat.device.type != "cuda":
         raise ValueError(f"blend: unsupported device {feat.device}")
     global BLEND_LAUNCHES
@@ -219,50 +231,83 @@ def blend_forward(feat, idx, starts, counts, tx_n: int, bg: float = 0.0):
     h, w = n_tiles // tx_n * TILE, tx_n * TILE
     img = torch.empty((h, w, 3), dtype=torch.float32, device=feat.device)
     trans = torch.empty((h, w), dtype=torch.float32, device=feat.device)
+    state = (torch.empty((h * w, 4), dtype=torch.float64, device=feat.device) if keep_state
+             else None)
     lib = _lib()
     code = lib.pixie_gs_blend(feat.data_ptr(), idx.data_ptr(), starts.data_ptr(),
                               counts.data_ptr(), n, m, n_tiles, tx_n, float(bg),
-                              img.data_ptr(), trans.data_ptr(), _stream(feat.device))
+                              img.data_ptr(), trans.data_ptr(),
+                              0 if state is None else state.data_ptr(), _stream(feat.device))
     raise_on_error(lib, code, "gs blend")
     BLEND_LAUNCHES += 1
-    return img, trans
+    return img, trans, state
 
 
-def blend_backward(feat, idx, starts, counts, tx_n: int, bg: float, d_img, d_trans):
+def _launch_backward(mode: int, feat, idx, starts, counts, tx_n: int, bg: float, d_img,
+                     d_trans, state):
+    n, m, n_tiles = _check(feat, idx, starts, counts, tx_n)
+    h, w = n_tiles // tx_n * TILE, tx_n * TILE
+    check_tensor("d_img", d_img, (h, w, 3), torch.float32, feat.device)
+    check_tensor("d_trans", d_trans, (h, w), torch.float32, feat.device)
+    if mode != BWD_MODES["pass1"]:
+        if state is None:
+            raise ValueError("blend backward: the kernel reads the forward's state "
+                             "(blend_forward(..., keep_state=True))")
+        check_tensor("state", state, (h * w, 4), torch.float64, feat.device)
+    per_pixel = mode == BWD_MODES["noreduce"]
+    out = torch.zeros((h * w, 9) if per_pixel else (n, 9), dtype=torch.float32,
+                      device=feat.device)
+    lib = _lib()
+    code = lib.pixie_gs_blend_backward(
+        mode, feat.data_ptr(), idx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        n, m, n_tiles, tx_n, float(bg), d_img.data_ptr(), d_trans.data_ptr(),
+        0 if state is None else state.data_ptr(),
+        0 if per_pixel else out.data_ptr(), out.data_ptr() if per_pixel else 0,
+        _stream(feat.device))
+    raise_on_error(lib, code, "gs blend backward")
+    return out
+
+
+def blend_backward(feat, idx, starts, counts, tx_n: int, bg: float, d_img, d_trans,
+                   state=None):
     """d feat (N, 9) of the blend for the cotangents d_img (H,W,3) and
-    d_trans (H,W); CPU tensors take ``blend_backward_plain``."""
+    d_trans (H,W); CPU tensors take ``blend_backward_plain``, CUDA tensors
+    need the forward's ``state`` (``blend_forward(..., keep_state=True)``)."""
     if feat.device.type == "cpu":
         return blend_backward_plain(feat, idx, starts, counts, tx_n, bg, d_img, d_trans)
     if feat.device.type != "cuda":
         raise ValueError(f"blend backward: unsupported device {feat.device}")
     global BLEND_BWD_LAUNCHES
-    n, m, n_tiles = _check(feat, idx, starts, counts, tx_n)
-    h, w = n_tiles // tx_n * TILE, tx_n * TILE
-    check_tensor("d_img", d_img, (h, w, 3), torch.float32, feat.device)
-    check_tensor("d_trans", d_trans, (h, w), torch.float32, feat.device)
-    d_feat = torch.zeros((n, 9), dtype=torch.float32, device=feat.device)
-    lib = _lib()
-    code = lib.pixie_gs_blend_backward(
-        feat.data_ptr(), idx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        n, m, n_tiles, tx_n, float(bg), d_img.data_ptr(), d_trans.data_ptr(),
-        d_feat.data_ptr(), _stream(feat.device))
-    raise_on_error(lib, code, "gs blend backward")
+    d_feat = _launch_backward(0, feat, idx, starts, counts, tx_n, bg, d_img, d_trans, state)
     BLEND_BWD_LAUNCHES += 1
     return d_feat
+
+
+def blend_backward_variant(mode: str, feat, idx, starts, counts, tx_n: int, bg: float, d_img,
+                           d_trans, state=None):
+    """An ablation of the backward kernel on CUDA tensors (``BWD_MODES``):
+    d feat (N, 9) (pass1), or each pixel's 9 terms summed over its entries,
+    (H*W, 9) (noreduce).  Not counted in BLEND_BWD_LAUNCHES."""
+    if feat.device.type != "cuda":
+        raise ValueError(f"blend backward {mode}: a kernel ablation, CUDA only")
+    return _launch_backward(BWD_MODES[mode], feat, idx, starts, counts, tx_n, bg, d_img,
+                            d_trans, state)
 
 
 class _Blend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, idx, starts, counts, tx_n, bg):
-        ctx.save_for_backward(feat, idx, starts, counts)
+        img, trans, state = _blend_forward(feat, idx, starts, counts, tx_n, bg,
+                                           ctx.needs_input_grad[0])
+        ctx.save_for_backward(feat, idx, starts, counts, state)
         ctx.tx_n, ctx.bg = tx_n, bg
-        return blend_forward(feat, idx, starts, counts, tx_n, bg)
+        return img, trans
 
     @staticmethod
     def backward(ctx, d_img, d_trans):
-        feat, idx, starts, counts = ctx.saved_tensors
+        feat, idx, starts, counts, state = ctx.saved_tensors
         d_feat = blend_backward(feat, idx, starts, counts, ctx.tx_n, ctx.bg,
-                                d_img.contiguous(), d_trans.contiguous())
+                                d_img.contiguous(), d_trans.contiguous(), state)
         return d_feat, None, None, None, None, None
 
 

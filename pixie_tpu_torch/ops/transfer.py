@@ -9,7 +9,11 @@ Dispatch is by the device of the tensors, with no fallback:
 The kernels replace the TPU's ``pixie_tpu/ops/transfer.py:p2g_tiled_t`` and
 ``g2p_tiled_t`` (and compute what the AoS ``p2g_tiled``/``g2p_tiled``
 compute); the source notes in ``csrc/transfer.cu`` say what bounds each and
-why it is shaped as it is.  Semantics are those of
+why it is shaped as it is.  The CUDA P2G is binned: a key kernel gives each
+particle its bin of ``P2G_BIN``^3 base cells and its cell within the bin
+(``p2g_bin_keys_plain`` is its plain version), ``torch.sort`` orders the
+keys, and the splat kernel sums each run of same-cell lanes of a warp
+before adding the sums into the grid.  Semantics are those of
 ``pixie_tpu/sim/solver.py`` p2g (:60-128) and g2p (:171-220), including the
 RPIC/PIC damping of C and the drop of out-of-grid nodes.
 
@@ -29,6 +33,9 @@ from pixie_tpu_torch.sim.types import MPMConfig, MPMState
 
 P2G_LAUNCHES = 0
 G2P_LAUNCHES = 0
+P2G_BIN = 4                # base cells a bin side (csrc/transfer.cu kBin)
+_HASH_MUL = 2654435761     # csrc/transfer.cu kHashMul
+_CELL_BITS = 6             # csrc/transfer.cu kCellBits: P2G_BIN^3 cells a bin
 
 _OFFSETS = np.array([(i, j, k) for i in range(3) for j in range(3) for k in range(3)],
                     np.int64)
@@ -39,8 +46,10 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = load_library("transfer")
     if not getattr(lib, "_pixie_typed", False):
-        lib.pixie_p2g.argtypes = [_c_void_p] * 8 + [_c_int, _c_int, _c_float, _c_float,
-                                                     _c_float, _c_float, _c_void_p]
+        lib.pixie_p2g_keys.argtypes = [_c_void_p] * 3 + [_c_int, _c_int, _c_float] + [
+            _c_int] * 2 + [_c_void_p]
+        lib.pixie_p2g_keys.restype = _c_int
+        lib.pixie_p2g.argtypes = [_c_void_p] * 9 + [_c_int] * 4 + [_c_float] * 4 + [_c_void_p]
         lib.pixie_p2g.restype = _c_int
         lib.pixie_g2p.argtypes = [_c_void_p] * 8 + [_c_int, _c_int, _c_float, _c_float,
                                                      _c_int, _c_void_p]
@@ -126,11 +135,63 @@ def scatter_to_grid(vals: torch.Tensor, flat: torch.Tensor, g: int) -> torch.Ten
     return grid.reshape(g, g, g, 4)
 
 
+def bin_layout(n_grid: int) -> tuple[int, int]:
+    """(bins a side, low bits) of the P2G bin keys: shifted base cells
+    0..n_grid+1 in bins of P2G_BIN; the key (bin << low bits | low) of the
+    last bin, nb^3 (no bin), must fit an int32, with room for the cell
+    within the bin in the low bits."""
+    nb = -(-(n_grid + 2) // P2G_BIN)
+    hbits = 31 - (nb ** 3).bit_length()
+    if hbits < _CELL_BITS:
+        raise ValueError(f"n_grid {n_grid}: {nb ** 3} bins do not fit the int32 bin keys")
+    return nb, hbits
+
+
+def p2g_bin_keys_plain(x, active, n_grid: int, inv_dx: float) -> torch.Tensor:
+    """(N,) int32 bin keys, as ``csrc/transfer.cu:p2g_keys_kernel`` makes
+    them: (bin of the base cell + 2 in P2G_BIN^3 cells) << low bits | low,
+    low the cell within the bin above the top bits of (index * 2654435761
+    mod 2^32); nb^3 << low bits for inactive particles, non-finite positions
+    and stencils with no in-grid node."""
+    nb, hbits = bin_layout(n_grid)
+    base = torch.floor(x * inv_dx - 0.5)
+    ok = active & torch.isfinite(x).all(1) & ((base >= -2) & (base <= n_grid - 1)).all(1)
+    b = torch.where(ok[:, None], base, 0.0).to(torch.int64) + 2
+    bins = ((b[:, 0] // P2G_BIN) * nb + b[:, 1] // P2G_BIN) * nb + b[:, 2] // P2G_BIN
+    cell = ((b[:, 0] % P2G_BIN) * P2G_BIN + b[:, 1] % P2G_BIN) * P2G_BIN + b[:, 2] % P2G_BIN
+    hash_bits = hbits - _CELL_BITS
+    low = (torch.arange(x.shape[0], device=x.device) * _HASH_MUL) % 2**32 >> (32 - hash_bits) \
+        if hash_bits > 0 else torch.zeros_like(bins)
+    keys = torch.where(ok, (bins << hbits) | (cell << hash_bits) | low, nb ** 3 << hbits)
+    return keys.to(torch.int32)
+
+
+def p2g_bin_keys(x, active, n_grid: int, inv_dx: float) -> torch.Tensor:
+    """(N,) int32 bin keys of P2G: ``p2g_bin_keys_plain`` on CPU tensors,
+    ``csrc/transfer.cu:p2g_keys_kernel`` on CUDA tensors (part of P2G, not
+    counted apart)."""
+    if x.device.type == "cpu":
+        return p2g_bin_keys_plain(x, active, n_grid, inv_dx)
+    if x.device.type != "cuda":
+        raise ValueError(f"p2g bin keys: unsupported device {x.device}")
+    n = x.shape[0]
+    check_tensor("x", x, (n, 3), torch.float32, x.device)
+    check_tensor("active", active, (n,), torch.bool, x.device)
+    nb, hbits = bin_layout(n_grid)
+    lib = _lib()
+    keys = torch.empty((n,), dtype=torch.int32, device=x.device)
+    code = lib.pixie_p2g_keys(x.data_ptr(), active.data_ptr(), keys.data_ptr(), n, n_grid,
+                              inv_dx, nb, hbits, torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(lib, code, "p2g bin keys")
+    return keys
+
+
 def p2g(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
     """Particle-to-grid scatter of momentum, mass and stress force.
 
     x, v (N,3); C, stress (N,3,3); mass, vol (N,); active (N,) bool
     (selection == 0).  Returns grid (G,G,G,4): [momentum x, y, z, mass].
+    On CUDA: the key kernel, ``torch.sort`` of the keys, the binned splat.
     """
     if x.device.type == "cpu":
         return p2g_plain(x, v, C, stress, mass, vol, active, cfg, dt)
@@ -143,13 +204,14 @@ def p2g(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
                            ("vol", vol, (n,))):
         check_tensor(name, t, shape, f32, dev)
     check_tensor("active", active, (n,), torch.bool, dev)
+    nb, hbits = bin_layout(g)
+    keys, perm = torch.sort(p2g_bin_keys(x, active, g, cfg.inv_dx))
     lib = _lib()
     grid = torch.zeros((g, g, g, 4), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.pixie_p2g(x.data_ptr(), v.data_ptr(), C.data_ptr(), stress.data_ptr(),
-                         mass.data_ptr(), vol.data_ptr(), active.data_ptr(),
-                         grid.data_ptr(), n, g, cfg.dx, cfg.inv_dx, float(dt),
-                         cfg.rpic_damping, stream)
+    code = lib.pixie_p2g(keys.data_ptr(), perm.data_ptr(), x.data_ptr(), v.data_ptr(),
+                         C.data_ptr(), stress.data_ptr(), mass.data_ptr(), vol.data_ptr(),
+                         grid.data_ptr(), n, g, nb, hbits, cfg.dx, cfg.inv_dx, float(dt),
+                         cfg.rpic_damping, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(lib, code, "p2g")
     P2G_LAUNCHES += 1
     return grid

@@ -40,18 +40,18 @@ REPO_NORMALIZATION = (Path(__file__).resolve().parent.parent / "normalization_st
 
 
 def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
-    """Highest ``epoch_k`` entry, as pixie_tpu/train/trainer.py:latest_checkpoint
-    finds it; ``epoch_k.pth`` files (the reference's checkpoint names) count
-    too, where the JAX function skips them."""
+    """Highest ``epoch_k.pth`` file: the reference's checkpoint names, the
+    only format ``train.inference.load_params`` reads.  The JAX package's
+    pixie_tpu/train/trainer.py:latest_checkpoint picks the highest orbax
+    ``epoch_k`` directory instead, which this port cannot load."""
     ckpt_dir = Path(ckpt_dir)
     if not ckpt_dir.exists():
         return None
     candidates = []
-    for p in ckpt_dir.glob("epoch_*"):
-        try:
-            candidates.append((int(p.name.split("_")[1].split(".")[0]), p))
-        except (IndexError, ValueError):
-            continue
+    for p in ckpt_dir.glob("epoch_*.pth"):
+        k = p.stem.split("_", 1)[1]
+        if p.is_file() and k.isdigit():
+            candidates.append((int(k), p))
     return max(candidates)[1] if candidates else None
 
 

@@ -30,6 +30,7 @@ from pixie_tpu_torch.recon.train_gaussians import search_for_max_iteration
 from pixie_tpu_torch.sim import material_field as mf
 from pixie_tpu_torch.sim import transforms as tf
 from pixie_tpu_torch.sim.bc import build_boundary_conditions
+from pixie_tpu_torch.sim.engine_utils import load_rollout_checkpoint, save_rollout_checkpoint
 from pixie_tpu_torch.sim.filling import fill_particles, get_particle_volume
 from pixie_tpu_torch.sim.params import decode_param_json
 from pixie_tpu_torch.sim.render_sim import SimRenderer, save_frame_png
@@ -79,13 +80,15 @@ def run_simulation(
     runs each frame that no particle BC touches as a fused-substep frame
     (``MPMSolver``); ``fused_frames`` in the info lists those frames,
     ``frame_s`` every frame's substep time, and ``scale_origin`` the factor
-    from world lengths to MPM lengths.  Rollout checkpointing
-    (``checkpoint_every``/``resume``) and internal particle filling are not
-    ported and raise ``NotImplementedError``.
+    from world lengths to MPM lengths.
+
+    ``checkpoint_every`` > 0 snapshots the solver state to
+    ``rollout_ckpt.npz`` every that-many frames (atomic write, the JAX
+    package's npz schema); with ``resume=True`` an existing snapshot
+    restores the rollout and the frames already exported are skipped.  A
+    config's ``particle_filling`` (GS mode) adds filled particles after the
+    gaussians, with zero covariance; they are simulated, not rendered.
     """
-    if checkpoint_every or resume:
-        raise NotImplementedError("rollout checkpoint/resume is not ported yet: "
-                                  "ROADMAP.md 'Next slices' (rollout checkpoint/resume)")
     if render_img and gaussian_checkpoint is None:
         raise ValueError("render_img requires gaussian_checkpoint")
     device = torch.device(device)
@@ -104,7 +107,7 @@ def run_simulation(
     if gaussian_checkpoint is not None:
         (init_cov_mpm, gs_payload, scale_origin, original_mean_pos,
          pos_mpm) = _prepare_gaussian_particles(gaussian_checkpoint, preprocessing_params,
-                                                material_params, rotation_matrices)
+                                                material_params, rotation_matrices, device)
         sub_params = dict(params)  # the whole PLY is the material source
     else:
         pos = tf.apply_rotations(params["pos"].astype(np.float32), rotation_matrices)
@@ -182,8 +185,18 @@ def run_simulation(
         frames_dir.mkdir(exist_ok=True)
         gs_num = gs_payload["gs_num"]
 
+    ckpt_path = output_dir / "rollout_ckpt.npz"
+    start_frame = 0
+    if resume and ckpt_path.exists():
+        ck_state, ck_time, start_frame = load_rollout_checkpoint(ckpt_path, device=device)
+        if ck_state.n_particles != solver.state.n_particles:
+            raise ValueError(f"rollout checkpoint particle count {ck_state.n_particles} "
+                             f"!= scene particle count {solver.state.n_particles}")
+        solver.state, solver.time = ck_state, ck_time
+        logging.info("resuming rollout from frame %d (t=%.4f)", start_frame, ck_time)
+
     frame_times, render_times, fused_frames = [], [], []
-    for frame in range(frame_num):
+    for frame in range(start_frame, frame_num):
         # render/export the CURRENT state, then step (gs_simulation.py:573-637)
         if renderer is not None:
             _sync(device)
@@ -213,6 +226,8 @@ def run_simulation(
             fused_frames.append(frame)
         _sync(device)
         frame_times.append(time.time() - t0)
+        if checkpoint_every and (frame + 1) % checkpoint_every == 0:
+            save_rollout_checkpoint(ckpt_path, solver.state, solver.time, frame + 1)
         if frame % 10 == 0:
             logging.info("frame %d/%d: %.1fms (%d substeps)", frame, frame_num,
                          frame_times[-1] * 1e3, steps_per_frame)
@@ -222,6 +237,7 @@ def run_simulation(
 
     info = {
         "n_particles": n,
+        "n_filled": n - gs_payload["gs_num"] if gs_payload else 0,
         "frames": frame_num,
         "substeps_per_frame": steps_per_frame,
         "median_frame_s": float(np.median(frame_times)) if frame_times else None,
@@ -252,12 +268,14 @@ def _export_cov(solver: MPMSolver) -> torch.Tensor:
 
 
 def _prepare_gaussian_particles(gaussian_checkpoint, preprocessing_params,
-                                material_params, rotation_matrices):
+                                material_params, rotation_matrices, device):
     """3DGS checkpoint -> simulation particles, reference order
     (gs_simulation.py:402-482): opacity filter -> rotations -> sim_area crop
     (crop-excluded gaussians kept for static rendering) -> transform2origin
     + shift2center111 -> MPM-frame covariances (apply_cov_rotations *
-    scale_origin**2).  Internal particle filling raises (not ported).
+    scale_origin**2) -> optional internal particle filling, its scans on
+    ``device`` (filled particles follow the ``gs_num`` gaussians with zero
+    covariance and are not rendered).
 
     Returns (init_cov_mpm, gs_payload, scale_origin, original_mean_pos, pos_mpm).
     """
@@ -292,8 +310,26 @@ def _prepare_gaussian_particles(gaussian_checkpoint, preprocessing_params,
     pos_mpm = tf.shift2center111(pos_norm, preprocessing_params.get("z_shift_value", 0.0))
     init_cov_mpm = (tf.apply_cov_rotations(cov_w, rotation_matrices)
                     * scale_origin ** 2).astype(np.float32)
-    if preprocessing_params.get("particle_filling"):
-        fill_particles()  # raises: not ported
+    gs_num = len(pos_mpm)
+    filling = preprocessing_params.get("particle_filling")
+    if filling:
+        # the JAX driver's keys (pixie_tpu/sim/driver.py:403-421), the
+        # reference's spelling of max_partciels_per_cell included
+        new_mpm = fill_particles(
+            pos_mpm, init_opacity[:, 0], init_cov_mpm,
+            grid_n=filling["n_grid"], max_samples=filling["max_particles_num"],
+            grid_dx=material_params["grid_lim"] / filling["n_grid"],
+            density_thres=filling["density_threshold"],
+            search_thres=filling["search_threshold"],
+            max_particles_per_cell=filling["max_partciels_per_cell"],
+            search_exclude_dir=filling["search_exclude_direction"],
+            ray_cast_dir=filling["ray_cast_direction"],
+            boundary=filling["boundary"], device=device)
+        if len(new_mpm):
+            pos_mpm = np.concatenate([pos_mpm, new_mpm])
+            logging.info("particle filling added %d particles", len(new_mpm))
+    init_cov_full = np.zeros((len(pos_mpm), 6), np.float32)
+    init_cov_full[:gs_num] = init_cov_mpm
     gs_payload = {"shs": init_shs, "opacity": init_opacity, "unselected": unselected,
-                  "gs_num": len(pos_mpm)}
-    return init_cov_mpm, gs_payload, scale_origin, original_mean_pos, pos_mpm
+                  "gs_num": gs_num}
+    return init_cov_full, gs_payload, scale_origin, original_mean_pos, pos_mpm

@@ -4,7 +4,8 @@ the card (skipped without a GPU: a CUDA kernel has no CPU mode).
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerances: P2G sums float atomics in run-dependent order, so grids agree
-to atol 1e-5 / rtol 1e-4 (momenta up to ~1e-1); G2P sums the 27 nodes in a
+to atol 1e-5 / rtol 1e-4 (momenta up to ~1e-1), and the binned P2G's cases
+to 1e-5 of the largest |grid| with the grid mass to rtol 1e-5; G2P sums the 27 nodes in a
 fixed order but contracts multiply-adds, atol 1e-5 / rtol 1e-4.  The tile
 blend's sequential transmittance product against the plain version's
 log-domain chunked product agrees to atol 1e-4 on colour and T (values in
@@ -87,6 +88,57 @@ def test_g2p_kernel_matches_plain(cuda_device, update_cov):
     for k in G2P_FIELDS:
         np.testing.assert_allclose(to_np(getattr(got, k)), to_np(getattr(want, k)),
                                    atol=1e-5, rtol=1e-4, err_msg=k)
+
+
+def _p2g_binned_case(case, n_grid=24):
+    """B1's cases: the random state of _state (every 13th inactive, 64
+    particles hanging off the low faces and 64 off the high ones), the same
+    sorted by base cell, every particle within a cell of a grid face, all
+    in one cell (one bin over 12 blocks of 256), n = 1, and 3000 particles
+    in one bin of 4^3 cells (a bin larger than a block)."""
+    st = _state(n=1 if case == "one_particle" else 3000)
+    dx = 2.0 / n_grid
+    rng = np.random.default_rng(9)
+    x = to_np(st.x).copy()
+    if case == "faces":
+        lo = rng.uniform(0.0, dx, (3000, 3))
+        x[:] = np.where(rng.random((3000, 1)) < 0.5, lo, 2.0 - lo)
+    elif case == "one_cell":
+        x[:] = 1.0 + dx * rng.uniform(0.55, 1.45, (3000, 3))
+    elif case == "one_bin":   # base cells 14..17: shifted 16..19, bin 4 on each axis
+        x[:] = dx * rng.uniform(15.05, 17.95, (3000, 3))
+    cfg = MPMConfig(n_grid=n_grid, grid_lim=2.0, rpic_damping=0.1)
+    args = [torch.as_tensor(x.astype(np.float32)), st.v, st.C, st.stress, st.mass, st.vol,
+            st.selection == 0]
+    if case == "cell_sorted":
+        order = torch.as_tensor(np.argsort(p1.base_cells(x, cfg), kind="stable"))
+        args = [a[order].contiguous() for a in args]
+    return args, cfg
+
+
+@pytest.mark.parametrize("case", ["random", "cell_sorted", "faces", "one_cell", "one_bin",
+                                  "one_particle"])
+def test_binned_p2g_kernel_matches_plain(cuda_device, case):
+    """B1 to 1e-5 of the largest |grid| (P2G_RTOL: float atomics in
+    run-dependent order), the grid's mass to the active particles' in-grid
+    mass, one count a call, and the key kernel equal to its plain version."""
+    args, cfg = _p2g_binned_case(case)
+    want = transfer.p2g_plain(*args, cfg, DT)
+    dev_args = [a.to(cuda_device) for a in args]
+    before = transfer.P2G_LAUNCHES
+    got = transfer.p2g(*dev_args, cfg, DT)
+    assert transfer.P2G_LAUNCHES == before + 1
+    want = to_np(want)
+    np.testing.assert_allclose(to_np(got), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(float(to_np(got)[..., 3].astype(np.float64).sum()),
+                               float(want[..., 3].astype(np.float64).sum()), rtol=1e-5)
+    keys = transfer.p2g_bin_keys(dev_args[0], dev_args[6], cfg.n_grid, cfg.inv_dx)
+    np.testing.assert_array_equal(to_np(keys), to_np(transfer.p2g_bin_keys_plain(
+        args[0], args[6], cfg.n_grid, cfg.inv_dx)))
+    if case == "one_bin":
+        nb, hbits = transfer.bin_layout(cfg.n_grid)
+        assert int((to_np(keys) >> hbits < nb ** 3).sum()) > 256
+        assert len(np.unique(to_np(keys)[to_np(args[6])] >> hbits)) == 1
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
@@ -215,6 +267,17 @@ def _underflow_bins():
                        R.Camera(64, 64, 64.0, 64.0, 32.0, 32.0), tile_cap=256)
 
 
+def _backward_on(dev, args, tx_n, bg, di, dt, mode=None):
+    """The CUDA backward as training runs it: the forward keeps its state,
+    the backward reads it; ``mode`` an ablation of gs_stream.BWD_MODES."""
+    args = [t.to(dev) for t in args]
+    state = gs_stream.blend_forward(*args, tx_n, bg, keep_state=True)[2]
+    di, dt = di.to(dev), dt.to(dev)
+    if mode is None:
+        return gs_stream.blend_backward(*args, tx_n, bg, di, dt, state)
+    return gs_stream.blend_backward_variant(mode, *args, tx_n, bg, di, dt, state)
+
+
 @pytest.mark.parametrize("case", ["random", "underflow", "tile_cap_truncated"])
 def test_blend_backward_kernel_matches_plain(cuda_device, case):
     bins = {"random": lambda: _splat_bins(tile_cap=512),
@@ -228,10 +291,64 @@ def test_blend_backward_kernel_matches_plain(cuda_device, case):
     di, dt = _cotangents(bins)
     want = gs_stream.blend_backward_plain(*args, bins.tx_n, 0.3, di, dt)
     before = gs_stream.BLEND_BWD_LAUNCHES
-    got = gs_stream.blend_backward(*(t.to(cuda_device) for t in args), bins.tx_n, 0.3,
-                                   di.to(cuda_device), dt.to(cuda_device))
+    got = _backward_on(cuda_device, args, bins.tx_n, 0.3, di, dt)
     assert gs_stream.BLEND_BWD_LAUNCHES == before + 1
     _assert_columns_close(got, want)
+
+
+def test_blend_backward_kernel_nan_opacity_and_empty_tiles(cuda_device):
+    """A NaN opacity fails the alpha gate as in the plain version (its row
+    gets no term; the plain version's conic and mean columns of that row are
+    NaN from 0 * NaN, its colour and opacity columns 0); empty tiles add
+    nothing; every other row to BWD_RTOL of its column."""
+    bins = _splat_bins(n=600, tile_cap=512)
+    feat = bins.feat.clone()
+    hit = int(bins.idx[bins.starts[int(torch.argmax(bins.counts))]])
+    feat[hit, 8] = float("nan")
+    counts = bins.counts.clone()
+    counts[::5] = 0                                   # every 5th tile empty
+    args = (feat, bins.idx, bins.starts, counts)
+    di, dt = _cotangents(bins)
+    want = to_np(gs_stream.blend_backward_plain(*args, bins.tx_n, 0.3, di, dt))
+    got = to_np(_backward_on(cuda_device, args, bins.tx_n, 0.3, di, dt))
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[hit], 0.0)
+    np.testing.assert_array_equal(want[hit, 5:], 0.0)
+    keep = np.ones(len(want), bool)
+    keep[hit] = False
+    _assert_columns_close(torch.as_tensor(got[keep]), torch.as_tensor(want[keep]))
+    empty = R.TileBins(feat=feat, idx=bins.idx, starts=bins.starts,
+                       counts=torch.zeros_like(counts), raw=counts, tx_n=bins.tx_n)
+    zero = _backward_on(cuda_device, (empty.feat, empty.idx, empty.starts, empty.counts),
+                        bins.tx_n, 0.3, di, dt)
+    assert float(zero.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mode", [None, "pass1"])
+def test_blend_backward_kernel_alpha_clamp(cuda_device, mode):
+    """The underflow scene, whose stacked splats sit at the 0.99 clamp at
+    their centres (d alpha dropped there): the shipped kernel and its pass1
+    ablation (S from a first walk) hold BWD_RTOL per column."""
+    bins = _underflow_bins()
+    args = (bins.feat, bins.idx, bins.starts, bins.counts)
+    assert float(bins.feat[:, 8].max()) > 0.99   # opacity sigmoid(6) = 0.9975
+    di, dt = _cotangents(bins)
+    want = gs_stream.blend_backward_plain(*args, bins.tx_n, 0.3, di, dt)
+    _assert_columns_close(_backward_on(cuda_device, args, bins.tx_n, 0.3, di, dt, mode), want)
+
+
+def test_blend_backward_needs_the_forward_state(cuda_device):
+    """The CUDA backward reads the forward's colour sums and final T: a call
+    without them raises (training's autograd always hands them over)."""
+    bins = _splat_bins(n=200)
+    args = [t.to(cuda_device) for t in (bins.feat, bins.idx, bins.starts, bins.counts)]
+    di, dt = (t.to(cuda_device) for t in _cotangents(bins))
+    with pytest.raises(ValueError, match="keep_state"):
+        gs_stream.blend_backward(*args, bins.tx_n, 0.3, di, dt)
+    state = gs_stream.blend_forward(*args, bins.tx_n, 0.3, keep_state=True)[2]
+    assert state.dtype == torch.float64 and state.shape == (di.shape[0] * di.shape[1], 4)
+    with pytest.raises(TypeError):
+        gs_stream.blend_backward(*args, bins.tx_n, 0.3, di, dt, state.float())
 
 
 def test_rasterize_tiled_backward_launches_each_kernel_once(cuda_device):

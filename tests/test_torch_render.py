@@ -526,19 +526,23 @@ def test_gs_path_mixed_materials_match_jax(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
+    """Particle filling and checkpoint/resume, once unported, now run
+    (tests/test_torch_filling.py holds them to JAX): a filling config of one
+    key runs on decode_param_json's defaults, a resume without a checkpoint
+    starts from frame 0, and render_img still needs a checkpoint."""
     from pixie_tpu_torch.sim.driver import run_simulation
 
     root = _gs_scene(tmp_path)
     cfg = json.loads((root / "sim.json").read_text())
     cfg["particle_filling"] = {"n_grid": 24}
     (root / "fill.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_simulation(root / "mapped_preds.ply", root / "fill.json", root / "o1",
-                       gaussian_checkpoint=root / "gs", device="cpu")
-    for kw in (dict(checkpoint_every=1), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_simulation(root / "mapped_preds.ply", root / "sim.json", root / "o2",
-                           device="cpu", **kw)
+    info = run_simulation(root / "mapped_preds.ply", root / "fill.json", root / "o1",
+                          n_frames=1, save_ply=False, gaussian_checkpoint=root / "gs",
+                          device="cpu")
+    assert info["n_filled"] == info["n_particles"] - 300 >= 0
+    info = run_simulation(root / "mapped_preds.ply", root / "sim.json", root / "o2", n_frames=1,
+                          save_ply=False, device="cpu", resume=True, checkpoint_every=1)
+    assert len(info["frame_s"]) == 1 and (root / "o2" / "rollout_ckpt.npz").exists()
     with pytest.raises(ValueError, match="gaussian_checkpoint"):
         run_simulation(root / "mapped_preds.ply", root / "sim.json", root / "o3",
                        render_img=True, device="cpu")

@@ -186,3 +186,28 @@ def test_main_cli_runs_the_slice(tmp_path):
     assert info["final_state_finite"]
     assert (sim / "ply_files" / "frame_0000.ply").exists()
     assert (sim / "boundary_conditions.json").exists()
+
+
+def test_latest_checkpoint_picks_a_loadable_pth(tmp_path):
+    """A directory holding reference ``epoch_k.pth`` files and JAX orbax
+    ``epoch_k`` directories: the port picks the highest ``.pth``, which
+    ``load_params`` reads; JAX's trainer picks the highest orbax directory."""
+    from pixie_tpu.train.trainer import latest_checkpoint as j_latest
+    from pixie_tpu_torch.pipeline import latest_checkpoint
+    from pixie_tpu_torch.train.inference import load_params
+
+    for k in (3, 7):
+        torch.save({"model_state_dict": {"w": torch.full((2,), float(k))}},
+                   tmp_path / f"epoch_{k}.pth")
+    for name in ("epoch_12", "epoch_20", "epoch_99.pth.d"):
+        (tmp_path / name).mkdir()
+    (tmp_path / "epoch_x.pth").write_bytes(b"")
+    (tmp_path / "epoch_50.pth").mkdir()   # a directory, not a checkpoint file
+    got = latest_checkpoint(tmp_path)
+    assert got == tmp_path / "epoch_7.pth"
+    assert float(load_params(got)["w"][0]) == 7.0
+    assert j_latest(tmp_path) == tmp_path / "epoch_20"
+    assert latest_checkpoint(tmp_path / "missing") is None
+    empty = tmp_path / "orbax_only"
+    (empty / "epoch_4").mkdir(parents=True)
+    assert latest_checkpoint(empty) is None

@@ -137,6 +137,102 @@ def test_blend_backward_plain_matches_autograd_of_blend_plain():
         np.testing.assert_allclose(got[:, c], want[:, c], rtol=1e-4, atol=1e-5 * scale)
 
 
+def _state_walk_backward(feat, idx, starts, counts, tx_n, bg, d_img, d_trans):
+    """The CUDA backward's algebra (csrc/gs_stream.cu, mode 0) in plain
+    PyTorch: one front-to-back walk per pixel, the suffix of w_k v_k taken
+    as the forward's colour sums (float64, of the float32 products) minus
+    the same sums over the entries so far, T_final from the forward; a
+    pixel whose T is 0 adds nothing."""
+    from pixie_tpu_torch.ops import gs_stream as G
+
+    n_tiles = starts.shape[0]
+    px, py = G._pixel_centres(n_tiles, tx_n, "cpu")
+    dc = G._image_to_tiles(d_img, tx_n)                                   # (T, P, 3)
+    dT = bg * dc.sum(-1) + G._image_to_tiles(d_trans, tx_n)
+    m = idx.shape[0]
+    steps = int(counts.max()) if n_tiles and m else 0
+
+    def entry(j):
+        pos = torch.clamp(starts.long() + j, 0, m - 1)
+        gi = idx[pos].long()
+        ok = (j < counts.long()) & (gi >= 0) & (gi < feat.shape[0])
+        f = torch.where(ok[:, None], feat[torch.clamp(gi, 0, feat.shape[0] - 1)], 0.0)[:, None]
+        dx, dy = px - f[..., 0], py - f[..., 1]
+        power = -0.5 * (f[..., 2] * dx * dx + f[..., 4] * dy * dy) - f[..., 3] * dx * dy
+        e = torch.exp(torch.clamp(power, max=0.0))
+        alpha = torch.clamp(f[..., 8] * e, max=G.ALPHA_MAX)
+        return gi, ok, f, dx, dy, power, e, alpha, alpha >= G.ALPHA_MIN
+
+    T = torch.ones_like(px)
+    col = torch.zeros_like(dc, dtype=torch.float64)
+    for j in range(steps):                                 # the forward's sums
+        _, _, f, _, _, _, _, alpha, hit = entry(j)
+        w = torch.where(hit, alpha * T, 0.0)
+        col = col + w[..., None].double() * f[..., 5:8].double()
+        T = torch.where(hit, T * (1.0 - alpha), T)
+    t_final, T = T, torch.ones_like(px)
+    pre = torch.zeros_like(col)
+    d_feat = torch.zeros_like(feat)
+    for j in range(steps):
+        gi, ok, f, dx, dy, power, e, alpha, hit = entry(j)
+        hit = hit & (T != 0.0)
+        w = alpha * T
+        v = (dc * f[..., 5:8]).sum(-1)
+        pre = pre + torch.where(hit, w, 0.0)[..., None].double() * f[..., 5:8].double()
+        suffix = (dc.double() * (col - pre)).sum(-1).float()
+        d_alpha = T * v - (suffix + dT * t_final) / (1.0 - alpha)
+        d_ae = torch.where(alpha < G.ALPHA_MAX, d_alpha, 0.0)
+        d_pow = torch.where(power < 0.0, d_ae * f[..., 8] * e, 0.0)
+        c0, c1, c2 = f[..., 2], f[..., 3], f[..., 4]
+        terms = torch.stack([d_pow * (c0 * dx + c1 * dy), d_pow * (c2 * dy + c1 * dx),
+                             d_pow * (-0.5 * dx * dx), d_pow * (-dx * dy),
+                             d_pow * (-0.5 * dy * dy), dc[..., 0] * w, dc[..., 1] * w,
+                             dc[..., 2] * w, d_ae * e], -1)
+        terms = torch.where(hit[..., None], terms, 0.0).sum(1)            # (T, 9)
+        d_feat.index_add_(0, gi[ok], terms[ok])
+        T = torch.where(hit, T * (1.0 - alpha), T)
+    return d_feat
+
+
+@pytest.mark.parametrize("case", ["stream", "tile_cap_binds", "underflow"])
+def test_state_backward_algebra_matches_plain(case):
+    """The CUDA backward takes S = sum_k w_k v_k and T_final from the
+    forward instead of a first walk: emulated in plain PyTorch, it gives
+    blend_backward_plain's d feat to BWD_RTOL (1e-5 of each column's
+    largest |value|), where T underflows to 0 too."""
+    from pixie_tpu_torch.ops import gs_stream
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    p, vm = underflow_scene() if case == "underflow" else splat_scene(600, seed=len(case))
+    cap = 128 if case == "tile_cap_binds" else 256
+    bins = TR.bin_tiles({k: torch.as_tensor(v) for k, v in p.items()}, torch.as_tensor(vm),
+                        TR.Camera(*CAM), tile_cap=cap)
+    rng = np.random.default_rng(8)
+    di = torch.as_tensor(rng.normal(size=(64, 64, 3)).astype(np.float32))
+    dt = torch.as_tensor(rng.normal(size=(64, 64)).astype(np.float32))
+    args = (bins.feat, bins.idx, bins.starts, bins.counts, bins.tx_n, 0.3, di, dt)
+    if case == "underflow":
+        assert float(gs_stream.blend_plain(*args[:6])[1].min()) == 0.0
+    if case == "tile_cap_binds":
+        assert int(bins.raw.max()) > cap
+    want, got = to_np(gs_stream.blend_backward_plain(*args)), to_np(_state_walk_backward(*args))
+    for c in range(9):
+        scale = float(np.abs(want[:, c]).max())
+        assert scale > 0.0
+        np.testing.assert_allclose(got[:, c], want[:, c], rtol=0, atol=1e-5 * scale, err_msg=c)
+
+
+@pytest.mark.parametrize("case", ["stream", "underflow"])
+def test_state_backward_algebra_gradients_match_jax(case, monkeypatch):
+    """The same emulation as rasterize_tiled's backward, against jax.grad
+    through JAX's _stream_bwd in interpret mode, every param key."""
+    from pixie_tpu_torch.ops import gs_stream
+
+    monkeypatch.setattr(gs_stream, "blend_backward_plain", _state_walk_backward)
+    p, vm = underflow_scene() if case == "underflow" else splat_scene(120, seed=6)
+    _assert_grads_close(*_grads_both(p, vm, tile_cap=256))
+
+
 def test_rasterize_dense_gradients_match_jax():
     from pixie_tpu.recon import rasterizer as JR
     from pixie_tpu_torch.recon import rasterizer as TR

@@ -149,3 +149,111 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     fake = torch.empty(0, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         transfer.p2g(fake, fake, fake, fake, fake, fake, fake, tc, DT)
+
+
+# -- the binned decomposition of the CUDA P2G, emulated in plain PyTorch ---------
+
+BLOCK = 256                        # csrc/transfer.cu kThreads
+
+
+def _binned_emulation(x, v, C, stress, mass, vol, active, cfg, dt):
+    """The index math of csrc/transfer.cu's binned P2G on the CPU: bin keys,
+    sorted; per warp of 32 sorted positions, each run of lanes with one base
+    cell sums its 27 nodes' values, added into the grid by index where the
+    node is in the grid."""
+    g = cfg.n_grid
+    nb, hbits = transfer.bin_layout(g)
+    keys, perm = torch.sort(transfer.p2g_bin_keys_plain(x, active, g, cfg.inv_dx))
+    bins = (keys >> hbits).to(torch.int64)
+    vals, _ = transfer.p2g_contributions(x, v, C, stress, mass, vol, active, cfg, dt)
+    base, *_ = transfer._spline_weights(x, cfg.inv_dx)
+    node = base[None] + torch.as_tensor(transfer._OFFSETS)[:, None, :]       # (27, N, 3)
+    in_grid = ((node >= 0) & (node < g)).all(-1)
+    grid = torch.zeros((g ** 3, 4))
+    side = g + 2
+    cell = ((base[:, 0] + 2) * side + base[:, 1] + 2) * side + base[:, 2] + 2
+    for w0 in range(0, x.shape[0], 32):
+        lanes = perm[w0:w0 + 32][bins[w0:w0 + 32] < nb ** 3]
+        c = cell[lanes]
+        run = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool), c[1:] != c[:-1]]), 0)
+        assert int(run[-1]) == len(torch.unique(c)) if len(c) else True   # cells adjacent
+        for r in range(1, int(run[-1]) + 1 if len(c) else 1):
+            members = lanes[run == r]
+            total = vals[:, members].sum(1)                             # (27, 4)
+            nd, ok = node[:, members[0]], in_grid[:, members[0]]
+            flat = (nd[:, 0] * g + nd[:, 1]) * g + nd[:, 2]
+            grid.index_add_(0, flat[ok], total[ok])
+    return grid.reshape(g, g, g, 4)
+
+
+def _binned_scene(case, n_grid=24, seed=0):
+    """random: 3000 particles in [0.4, 1.6]^3 (~3 a cell); faces: 400 within
+    a cell of the low grid faces, 400 of the high ones, 10 with no in-grid
+    node, every 13th inactive; one_cell: all 3000 in one cell; sparse: 60
+    over the whole grid (bins of one or two particles: the direct splat);
+    one_particle: n = 1."""
+    n = {"sparse": 60, "one_particle": 1}.get(case, 3000)
+    d = random_particles(n, seed)
+    x, dx = d["x"], 2.0 / n_grid
+    rng = np.random.default_rng(seed + 1)
+    active = np.ones(n, bool)
+    if case == "faces":
+        x[:400] = rng.uniform(0.0, dx, (400, 3))
+        x[400:800] = 2.0 - rng.uniform(0.0, dx, (400, 3))
+        x[800:810] = [-0.5, 1.0, 1.0]
+        active[::13] = False
+    elif case == "one_cell":
+        x[:] = 1.0 + dx * rng.uniform(0.55, 1.45, (n, 3))
+    elif case == "sparse":
+        x[:] = rng.uniform(0.0, 2.0, (n, 3))
+    cfg = configs(n_grid=n_grid, grid_lim=2.0, rpic_damping=0.1)[1]
+    args = [torch.as_tensor(a) for a in (x, d["v"], d["C"], d["stress"])]
+    args += [torch.full((n,), 1.0 / n), torch.as_tensor(d["vol"]), torch.as_tensor(active)]
+    return args, cfg
+
+
+@pytest.mark.parametrize("order", ["given", "cell_sorted"])
+@pytest.mark.parametrize("case", ["random", "faces", "one_cell", "sparse", "one_particle"])
+def test_binned_p2g_decomposition_matches_plain(case, order):
+    """The CUDA P2G's bins and runs, emulated on the CPU, give p2g_plain's
+    grid to 1e-6 of its largest value (the sums run in another order), for
+    the particles in their given order and sorted by base cell (the keys'
+    hash of the index then orders a cell's particles otherwise); every
+    particle of one cell is one bin larger than a block."""
+    args, cfg = _binned_scene(case)
+    off = torch.zeros(args[0].shape[0], dtype=torch.bool)   # faces: no in-grid node
+    off[800:810] = case == "faces"
+    if order == "cell_sorted":
+        base = torch.floor(args[0] * cfg.inv_dx - 0.5).long()
+        g = cfg.n_grid + 4
+        perm = torch.argsort(((base[:, 0] * g + base[:, 1]) * g + base[:, 2]), stable=True)
+        args, off = [a[perm] for a in args], off[perm]
+    want = transfer.p2g_plain(*args, cfg, DT)
+    got = _binned_emulation(*args, cfg, DT)
+    scale = float(want.abs().max())
+    assert scale > 0.0
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=0, atol=1e-6 * scale)
+    keys = transfer.p2g_bin_keys_plain(args[0], args[6], cfg.n_grid, cfg.inv_dx)
+    nb, hbits = transfer.bin_layout(cfg.n_grid)
+    counts = torch.bincount((keys >> hbits).long(), minlength=nb ** 3 + 1)
+    if case == "one_cell":
+        assert int(counts[:-1].max()) == 3000 > BLOCK            # one bin over 12 blocks
+    if case == "faces":   # no bin: the inactive ones and the active ones off the grid
+        assert int(counts[-1]) == int((~args[6]).sum()) + int((args[6] & off).sum())
+
+
+def test_bin_keys_order_cells_within_a_bin():
+    """A bin's particles sort by their cell within the bin, so the lanes of
+    one cell are adjacent; below the cell bits a hash of the index, so a
+    cell's particles come in a pseudo-random order."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor((1.065 + 0.15 * rng.random((4096, 3))).astype(np.float32))  # bin 7
+    active = torch.ones(4096, dtype=torch.bool)
+    nb, hbits = transfer.bin_layout(50)
+    keys, perm = torch.sort(transfer.p2g_bin_keys_plain(x, active, 50, 25.0))
+    base = torch.floor(x * 25.0 - 0.5).long()[perm] + 2
+    flat = (base[:, 0] * 52 + base[:, 1]) * 52 + base[:, 2]
+    assert int((keys >> hbits).unique().numel()) == 1                    # one bin
+    assert int((flat[1:] != flat[:-1]).sum()) == len(flat.unique()) - 1  # each cell one run
+    gaps = (perm[1:33] - perm[:32]).abs()
+    assert int(gaps.min()) > 1 and len(set(perm[:32].tolist())) == 32
