@@ -18,15 +18,25 @@ Phases (any failure exits non-zero):
                 at the slice's shapes; the fused substep
                 (B6) vs its plain version on a mixed-material state at the
                 same shapes (ids 0, 1, 2, 3, 5, 6, yielding, damaged,
-                inactive and off-face particles); a torch.profiler count of
-                launches per substep, unfused and fused; the tile blend
-                (B3, tile_cap 512) and its backward (B4, tile_cap 1024, a
-                seeded cotangent) vs their plain versions at the render's
-                shapes (~100k seeded gaussians at 800x800, the tree config's
-                camera), with timings and B4's peak device memory, and B4's
-                ablation: without its per-entry reduction, and with a
-                first walk in place of the forward's state; the forward
-                with and without that state at B4's shapes; the unfused
+                inactive and off-face particles) in three particle orders
+                (as given, sorted by cell, sorted then drifted by 100 fused
+                substeps), each with its mean run length and timed against
+                the previous splat (108 atomics a particle) and without the
+                splat; the mean run length of a kept cell order at substeps
+                1, 100 and 399 of a fused frame; a torch.profiler count of
+                launches, wall and device time a substep, unfused (binned
+                and unbinned P2G in turns) and fused (B6 and the previous
+                fused frame in turns); the tile blend (B3, tile_cap 512)
+                and its backward (B4, tile_cap 1024, a seeded cotangent)
+                vs their plain versions at the render's shapes (~100k
+                seeded gaussians at 800x800, the tree config's camera),
+                with timings and B4's peak device memory, and B4's
+                ablation: without its per-entry reduction, and with a first
+                walk in place of the forward's state; B3 at both tile_caps, with and without
+                that state, against its previous schedule (bitwise) and its
+                ablations (no per-warp lists; the gate alone), with the
+                share of (warp, entry) pairs its lists keep and its power
+                bit-equal to the plain order of operations; the unfused
                 substep with the binned P2G and with the unbinned splat,
                 in turns
   4. probes   — the probe entry points pixie_tpu_torch.scripts.
@@ -475,30 +485,22 @@ def _branches(st, mu_in):
     return moved.to(torch.int32) + 2 * expand.to(torch.int32) + 4 * damaged.to(torch.int32)
 
 
-def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
-    """B6 against fused_substep_plain on one substep of _fused_state."""
+def _check_fused(out_k, grid_k, out_p, grid_p, mu_in, label: str,
+                 every_branch: bool = True) -> float:
+    """B6's outputs against the plain version's by the criterion above (and
+    with ``every_branch`` the plain version must take every return-map
+    branch); returns the largest error of the fields held to FUSED_RTOL."""
     import torch
 
-    from pixie_tpu_torch.ops import build
     from pixie_tpu_torch.ops import fused_substep as fs
 
-    st, cfg, grid_v = _fused_state(dev, n, n_grid)
-    active = st.selection == 0
-
-    def fresh():
-        return st.replace(**{k: getattr(st, k).clone() for k in fs.UPDATED_FIELDS})
-
-    out_k, out_p = fresh(), fresh()
-    grid_k = fs.fused_substep(out_k, grid_v, cfg, DT, active)
-    grid_p = fs.fused_substep_plain(out_p, grid_v, cfg, DT, active)
-    torch.cuda.synchronize()
     err = 0.0
     for k in ("x", "v", "C", "F_trial", "cov", "grid"):
         got, ref = (grid_k, grid_p) if k == "grid" else (getattr(out_k, k), getattr(out_p, k))
         e, tol = float((got - ref).abs().max()), FUSED_RTOL * float(ref.abs().max())
-        print(f"fused_substep {k}: max_abs_err {e:.3e} (tol {tol:.3e})")
+        print(f"fused_substep ({label}) {k}: max_abs_err {e:.3e} (tol {tol:.3e})")
         if not e <= tol:
-            fail(f"fused_substep kernel disagrees with its plain version on {k}")
+            fail(f"fused_substep kernel disagrees with its plain version on {k} ({label})")
         err = max(err, e)
     for k in ("F", "stress", "mu", "lam", "yield_stress"):
         got, ref = getattr(out_k, k), getattr(out_p, k)
@@ -506,24 +508,121 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
         floor = ULP_FLOOR * scale
         diff = (got - ref).abs()
         share, worst = float((diff <= floor).float().mean()), float(diff.max())
-        print(f"fused_substep {k}: {share:.5f} of entries within the ULP floor {floor:.3e}, "
-              f"max_abs_err {worst:.3e} (tol: share >= {ULP_SHARE}, max <= "
+        print(f"fused_substep ({label}) {k}: {share:.5f} of entries within the ULP floor "
+              f"{floor:.3e}, max_abs_err {worst:.3e} (tol: share >= {ULP_SHARE}, max <= "
               f"{ULP_MAX * floor:.3e})")
         if not (share >= ULP_SHARE and worst <= ULP_MAX * floor):
-            fail(f"fused_substep kernel disagrees with its plain version on {k}")
-    bk, bp = _branches(out_k, st.mu), _branches(out_p, st.mu)
+            fail(f"fused_substep kernel disagrees with its plain version on {k} ({label})")
+    bk, bp = _branches(out_k, mu_in), _branches(out_p, mu_in)
     counts = {c: int((bp == c).sum()) for c in (1, 3, 5)}
-    print(f"fused_substep: return-map branch differs for {float((bk != bp).float().mean()):.3e} "
-          f"of particles ({int((bk != bp).sum())}); plain version's branches: yielded "
-          f"{counts[1]}, sand expanded {counts[3]}, snow damaged {counts[5]}")
-    if not all(counts.values()):
+    print(f"fused_substep ({label}): return-map branch differs for "
+          f"{float((bk != bp).float().mean()):.3e} of particles ({int((bk != bp).sum())}); plain "
+          f"version's branches: yielded {counts[1]}, sand expanded {counts[3]}, snow damaged "
+          f"{counts[5]}")
+    if every_branch and not all(counts.values()):
         fail("the fused state did not take every return-map branch")
     if not all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in fs.UPDATED_FIELDS):
-        fail("non-finite fused_substep output")
+        fail(f"non-finite fused_substep output ({label})")
+    return err
 
-    k_ms = cuda_ms(lambda s: fs.fused_substep(s, grid_v, cfg, DT, active), setup=lambda: (fresh(),))
+
+RUN_SUBSTEPS = (1, 100, 399)   # substeps of a fused frame at which runs are read
+
+
+def _drift_frame(st, cfg, dev):
+    """A fused frame of 400 substeps of _fused_state (no collider) on the
+    state sorted into the prologue's cell order, never re-sorted: the mean
+    run length of that order and of a fresh cell sort at RUN_SUBSTEPS, and
+    the state at substep 100."""
+    import torch
+
+    from pixie_tpu_torch.ops import fused_substep as fs
+    from pixie_tpu_torch.ops import transfer
+    from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
+    from pixie_tpu_torch.sim.solver import grid_update, permute_state
+
+    s = compute_stress_from_F_trial(st, cfg, DT)
+    active = s.selection == 0
+    grid, order = transfer.p2g(s.x, s.v, s.C, s.stress, s.mass, s.vol, active, cfg, DT,
+                               return_order=True)
+    if order is None:   # the CPU's plain P2G (a rehearsal) returns no order
+        order = transfer.cell_order(s.x, active, cfg)
+    s, active = permute_state(s, order), active[order]
+    runs, drifted = {}, None
+    for step in range(1, 400):
+        grid_v = grid_update(grid, cfg, DT, 0.0, ())
+        if step in RUN_SUBSTEPS:
+            fresh = transfer.cell_order(s.x, active, cfg)
+            runs[step] = (fs.mean_run_length(s.x, active, cfg),
+                          fs.mean_run_length(s.x[fresh], active[fresh], cfg))
+        if step == 100:
+            drifted = s.replace(**{k: getattr(s, k).clone() for k in fs.UPDATED_FIELDS})
+        grid = fs.fused_substep(s, grid_v, cfg, DT, active)
+    torch.cuda.synchronize()
+    return runs, drifted
+
+
+def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
+    """B6 against fused_substep_plain on one substep of _fused_state, its
+    particles in three orders: as given, sorted by cell, and sorted by cell
+    at substep 0 of a fused frame, then drifted by its first 100 substeps;
+    each timed with the previous splat (108 atomics a particle) and without
+    the splat, in the same call; the mean run length over a fused frame."""
+    import torch
+
+    from pixie_tpu_torch.ops import build
+    from pixie_tpu_torch.ops import fused_substep as fs
+    from pixie_tpu_torch.ops import transfer
+    from pixie_tpu_torch.sim.solver import permute_state
+
+    st, cfg, grid_v = _fused_state(dev, n, n_grid)
+    runs, drifted = _drift_frame(st, cfg, dev)
+    print("fused_substep: mean run length (active lanes / runs) of a fused frame's lanes in the "
+          "prologue's cell order, kept without re-sorting, against a fresh cell sort: " + "; ".join(
+              f"substep {k} {v[0]:.3f} (fresh {v[1]:.3f})" for k, v in runs.items()), flush=True)
+    orders = {"given": st,
+              "cell-sorted": permute_state(st, transfer.cell_order(st.x, st.selection == 0, cfg)),
+              "drifted 100 substeps": drifted}
+    err, per_order = 0.0, {}
+    for label, s0 in orders.items():
+        active = s0.selection == 0
+
+        def fresh(s0=s0):
+            return s0.replace(**{k: getattr(s0, k).clone() for k in fs.UPDATED_FIELDS})
+
+        out_k, out_p = fresh(), fresh()
+        grid_k = fs.fused_substep(out_k, grid_v, cfg, DT, active)
+        grid_p = fs.fused_substep_plain(out_p, grid_v, cfg, DT, active)
+        torch.cuda.synchronize()
+        # the drifted state's snow has already damaged: that branch is spent
+        err = max(err, _check_fused(out_k, grid_k, out_p, grid_p, s0.mu, label,
+                                    every_branch=s0 is st))
+        row = {"run_length": fs.mean_run_length(s0.x, active, cfg)}
+        for sched in ("run_sums", "atomics", "nosplat", "run_sums (again)", "atomics (again)"):
+            name = sched.split()[0]
+            row[sched] = cuda_ms(lambda s, m=name, a=active: fs.fused_substep_variant(
+                m, s, grid_v, cfg, DT, a), setup=lambda: (fresh(),))
+        per_order[label] = row
+        print(f"fused_substep ({label}): mean run length {row['run_length']:.3f}; ms (median of 30 "
+              f"CUDA-event timings): " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                                                   if k != "run_length"), flush=True)
+    # the previous schedule as it ran: one thread a particle in the caller's order
+    prev = per_order["given"]["atomics"]
+    shipped = per_order["cell-sorted"]["run_sums"]
+    g, c = per_order["given"], per_order["cell-sorted"]
+    print(f"B6 attribution: previous schedule (given order, 108 atomics) {prev:.4f} ms, shipped "
+          f"in a cell order {shipped:.4f} ms; splat ~ run_sums - nosplat: cell-sorted "
+          f"{c['run_sums'] - c['nosplat']:.4f}, given {g['run_sums'] - g['nosplat']:.4f} ms, "
+          f"previous splat {g['atomics'] - g['nosplat']:.4f} ms; the gather and constitutive "
+          f"math (nosplat) given {g['nosplat']:.4f} against cell-sorted {c['nosplat']:.4f} ms",
+          flush=True)
+
+    def fresh_given():
+        return st.replace(**{k: getattr(st, k).clone() for k in fs.UPDATED_FIELDS})
+
+    active = st.selection == 0
     p_ms = cuda_ms(lambda s: fs.fused_substep_plain(s, grid_v, cfg, DT, active),
-                   setup=lambda: (fresh(),), reps=10)
+                   setup=lambda: (fresh_given(),), reps=10)
     mat = st.material[active]
     n_act = int(active.sum())
     counts = {m: int((mat == m).sum()) for m in range(8)}
@@ -535,14 +634,16 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
                      + (SVD3_OPS + RETURN_MAP_OPS) * (m in (1, 2, 3, 5)))
                 for m, c in counts.items())
     b = bound(n_bytes, n_ops)
-    print(f"fused_substep: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 / 10 "
-          f"CUDA-event timings, {n} particles, {n_act} active, n_grid {n_grid}); bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {n_bytes / 1e6:.2f} MB, "
-          f"{n_ops / 1e6:.1f} Mflop)", flush=True)
+    print(f"fused_substep: kernel {shipped:.4f} ms (cell-sorted lanes), previous schedule "
+          f"{prev:.4f} ms, plain {p_ms:.4f} ms (median of 30 / 10 CUDA-event timings, {n} "
+          f"particles, {n_act} active, n_grid {n_grid}); bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} Mflop)", flush=True)
     for line in build.BUILD_LOG.get("fused_substep", "(cached build: no ptxas report)").splitlines():
         if "registers" in line or "spill" in line or "cached" in line:
             print(f"fused_substep ptxas: {line.strip()}")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}
+    return {"max_abs_err": err, "ms": shipped, "plain_ms": p_ms, **b, "library_ms": None,
+            "previous_ms": prev, "orders": per_order,
+            "run_length": {str(k): v[0] for k, v in runs.items()}}
 
 
 def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
@@ -558,7 +659,9 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
     by several ms on the host's clock, which the long frames dilute.  The
     unfused substep runs four turns: with B1 as shipped, with the unbinned
     splat (P1's full, the one-kernel P2G before the binning) in its place,
-    again unbinned, again binned."""
+    again unbinned, again binned; the fused substep four: with B6 as
+    shipped, with the previous B6 (108 atomics a particle, the caller's
+    order) in its place, again previous, again shipped."""
     import contextlib
 
     import torch
@@ -617,10 +720,26 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
               f"{one[0] * 1e3:.3f} ms wall, {one[1]} device kernels, {one[2]} launches, device "
               f"time {one[3] / 1e3:.3f} ms", flush=True)
 
+    @contextlib.contextmanager
+    def previous_b6():
+        """The previous fused frame: the 108-atomic splat on the state in
+        the caller's order (P2G hands the frame no cell order)."""
+        shipped, shipped_p2g = fs.fused_substep, transfer.p2g
+        fs.fused_substep = lambda s, gv, c, dt, act: fs.fused_substep_variant(
+            "atomics", s, gv, c, dt, act)
+        transfer.p2g = lambda *a, return_order=False: (
+            (shipped_p2g(*a), None) if return_order else shipped_p2g(*a))
+        try:
+            yield
+        finally:
+            fs.fused_substep, transfer.p2g = shipped, shipped_p2g
+
     for turn in ("binned", "unbinned", "unbinned", "binned"):
         with unbinned() if turn == "unbinned" else contextlib.nullcontext():
             measure("unfused", f"unfused ({turn} P2G)")
-    measure("fused", "fused")
+    for turn in ("shipped", "previous", "previous", "shipped"):
+        with previous_b6() if turn == "previous" else contextlib.nullcontext():
+            measure("fused", f"fused ({turn} B6)")
 
 
 def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES, n_cams: int = 5):
@@ -697,7 +816,86 @@ def phase_blend(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES):
     print(f"gs_blend: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 CUDA-event "
           f"timings, {res}x{res}, tile_cap 512); bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})", flush=True)
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}
+    ablation = _blend_ablation(bins, dev, 512)
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None,
+            "ablation_ms": ablation}
+
+
+def _power_bits_equal(bins, dev, n_tiles: int = 64) -> int:
+    """The packed staging's power, with the conic scaled by -1/2 and -1 at
+    staging, against the plain version's order of operations, bit for bit,
+    over every (pixel, entry) pair of the n_tiles heaviest tiles (plain
+    PyTorch ops on the card, each rounded on its own as the kernel rounds
+    them); fails on any differing bit.  Returns the number of pairs."""
+    import torch
+
+    from pixie_tpu_torch.ops import gs_stream
+
+    px, py = gs_stream._pixel_centres(bins.starts.shape[0], bins.tx_n, dev)
+    pairs = 0
+    for t in torch.argsort(bins.counts, descending=True)[:n_tiles].tolist():
+        s0, c = int(bins.starts[t]), int(bins.counts[t])
+        f = bins.feat[bins.idx[s0:s0 + c].long()][:, None, :]
+        dx, dy = px[t][None, :] - f[..., 0], py[t][None, :] - f[..., 1]
+        plain = -0.5 * (f[..., 2] * dx * dx + f[..., 4] * dy * dy) - f[..., 3] * dx * dy
+        scaled = ((-0.5 * f[..., 2]) * dx * dx + (-0.5 * f[..., 4]) * dy * dy) \
+            + (-f[..., 3]) * dx * dy
+        if not torch.equal(plain.view(torch.int32), scaled.view(torch.int32)):
+            fail("the scaled conic's power differs from the plain version's in some bit")
+        pairs += plain.numel()
+    return pairs
+
+
+def _blend_ablation(bins, dev, tile_cap: int, bg: float = 0.0) -> dict:
+    """B3's schedules on one scene, with and without the state, in turns:
+    the shipped kernel (packed staging, per-warp entry lists, exact early
+    exit, half-tile blocks), the previous schedule and the ablations
+    nolists and alpha; the shipped kernel's img, T and state bit for bit
+    against the previous schedule's; the share of the (warp, entry) pairs
+    the lists keep.  Returns {mode: ms} a state."""
+    import torch
+
+    from pixie_tpu_torch.ops import gs_stream
+
+    args = (bins.feat, bins.idx, bins.starts, bins.counts, bins.tx_n, bg)
+    out = {}
+    for keep in (False, True):
+        ship = gs_stream.blend_forward_variant("shipped", *args, keep)
+        prev = gs_stream.blend_forward_variant("previous", *args, keep)
+        torch.cuda.synchronize()
+        if not all((g is None and w is None) or torch.equal(g, w) for g, w in zip(ship, prev)):
+            fail(f"B3 (state {keep}) is not bitwise equal to the previous schedule")
+        ms = {}
+        for mode in ("shipped", "previous", "nolists", "alpha", "shipped (again)",
+                     "previous (again)"):
+            ms[mode] = cuda_ms(lambda m=mode.split()[0]: gs_stream.blend_forward_variant(
+                m, *args, keep))
+        out["state" if keep else "no_state"] = ms
+        print(f"B3 at tile_cap {tile_cap}, {'keeping' if keep else 'without'} the state: img, T"
+              f"{', state' if keep else ''} bitwise equal to the previous schedule's; ms (median "
+              f"of 30 CUDA-event timings, in turns): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+    box = gs_stream.blend_box_plain(bins.feat)
+    met = pairs = 0
+    w = torch.arange(8, device=dev)                     # a warp's 8 x 4 pixel block
+    wx, wy = (w % 2) * 8.0 + 0.5, (w // 2) * 4.0 + 0.5
+    for t, (s0, c) in enumerate(zip(bins.starts.tolist(), bins.counts.tolist())):
+        if not c:
+            continue
+        b = box[bins.idx[s0:s0 + c].long()]
+        x0 = wx + float((t % bins.tx_n) * 16)
+        y0 = wy + float((t // bins.tx_n) * 16)
+        hit = ((b[:, 0:1] <= x0 + 7.0) & (b[:, 1:2] >= x0)
+               & (b[:, 2:3] <= y0 + 3.0) & (b[:, 3:4] >= y0))
+        met += int(hit.sum())
+        pairs += hit.numel()
+    out["list_share"] = met / max(pairs, 1)
+    out["power_pairs"] = _power_bits_equal(bins, dev)
+    print(f"B3 at tile_cap {tile_cap}: the per-warp lists keep {out['list_share']:.4f} of the "
+          f"{pairs} (warp, entry) pairs; power of the scaled conic bit-equal to the plain "
+          f"version's on {out['power_pairs']} (pixel, entry) pairs of the 64 heaviest tiles",
+          flush=True)
+    return out
 
 
 def _blend_bound(bins, pixel_bytes: int, out_bytes: int) -> dict:
@@ -789,6 +987,12 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
     fwd = {"no_state": cuda_ms(lambda: gs_stream.blend_forward(*args[:6])),
            "keep_state": cuda_ms(lambda: gs_stream.blend_forward(*args[:6], keep_state=True))}
     fwd["no_state (again)"] = cuda_ms(lambda: gs_stream.blend_forward(*args[:6]))
+    # B3 as a training step runs it: its bound (one walk; img, T and the
+    # state written, 48 B a pixel) and its schedules at these shapes
+    fwd["bound"] = _blend_bound(bins, pixel_bytes=48, out_bytes=0)
+    fwd["ablation"] = _blend_ablation(bins, dev, tile_cap, bg=0.3)
+    print(f"B3 keeping the state at tile_cap {tile_cap}: bound {fwd['bound']['bound_ms']:.4f} ms "
+          f"({fwd['bound']['bound_by']})", flush=True)
     print("gs_blend_backward ablation, ms (median of 30 CUDA-event timings, same inputs): "
           + ", ".join(f"{m} {t:.4f}" for m, t in ablation.items()), flush=True)
     a = ablation

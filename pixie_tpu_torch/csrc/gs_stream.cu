@@ -17,16 +17,48 @@
 //   counts  (T,)    entries blended for tile t (already capped at tile_cap)
 //
 // Design: the reference rasterizer's shape (forward.cu renderCUDA), one
-// block of 256 threads per tile, one thread per pixel.  The block walks its
-// tile's entries in batches of 256: each thread gathers one splat's 9 floats
-// (through idx) into shared memory, the block syncs, and every thread
-// composites the batch in order in registers.  All threads read the same
-// shared splat at once, a broadcast without bank conflicts.
+// thread per pixel, here two blocks a tile, each on 8 of its 16 rows (kSplit,
+// kRows).  At 800x800 only ~800 of 2500 tiles hold entries, all in one wave
+// of blocks, so the busiest SM sets the time: half tiles share the work out
+// more evenly (quarter tiles did no better).  A block walks its tile's
+// entries in batches of one entry a thread, each thread staging one into
+// shared memory, and every thread composites the batch in order in
+// registers.  Three things keep a thread's work per (pixel, entry) pair
+// small, and a fourth its latency hidden:
+//   1. packed staging: an entry's gate inputs are one float4 (mx, my,
+//      -c0/2, -c1) and one float2 (-c2/2, opacity), so a pair costs two
+//      shared loads, not nine, and the colour (as doubles, where the state
+//      is kept) is read only on a hit.  Scaling the conic by -1/2 and -1 is
+//      exact in float (bar subnormals), so power is the bits the plain
+//      order of operations gives;
+//   2. per-warp entry lists: the staging thread also bounds the pixels its
+//      entry can pass the alpha >= 1/255 gate at (blend_box, below), and each
+//      warp, an 8 x 4 block of pixels, ballots the batch's boxes against its
+//      rectangle, 32 entries a ballot, then walks only the entries whose box
+//      meets it, in order.  A skipped entry fails the gate at every pixel of
+//      the warp, where the plain version adds nothing, so the lists change
+//      no result;
+//   3. an exact early exit: once a pixel's T is 0, every later w and T is 0
+//      and adds exactly 0 (for finite colours); a warp whose T are all 0
+//      skips its batches, and the block stops once every warp has
+//      (__syncthreads_or);
+//   4. the list is walked two entries at a time: both gates (independent of
+//      T) in flight, then the two blends in order.
+// All threads read the same shared entry at once, a broadcast without bank
+// conflicts.
 //
-// Bound: one expf and ~15 flops per (pixel, splat) pair plus the gathered
-// loads, at most tile_cap (512) splats x 256 pixels per tile; at 800x800
-// and ~100k splats that is ~1e8 pairs a frame.  The 9-float gathers are
-// random rows of a 3.6 MB table that stays in L2.
+// Bound: one expf and ~16 flops per (pixel, entry) pair for the gate, at
+// most tile_cap entries x 256 pixels per tile (~1.4e8 pairs a training step
+// at 800x800, ~100k splats, tile_cap 1024); the lists cut the pairs a thread
+// evaluates, not the bound's count.  The gathered rows (36 B) come from a
+// 3.6 MB table that stays in L2.
+//
+// The previous schedule (blend_previous_kernel, the `previous` mode, kept
+// so that chip_smoke.py times it in turn): one block of 256 threads a tile,
+// each entry staged as 9 scalar floats (nine shared loads a pair), no lists
+// and no early exit.  The modes `nolists` (1 and 3, one gate at a time) and
+// `alpha` (1, the gate of every pair and no compositing) price the parts.  No path
+// of the port calls the modes.
 //
 // The TPU kernel forms the exclusive transmittance of a 128-splat chunk as
 // a matmul of log(1 - alpha) with a triangular matrix, which puts the scan
@@ -38,7 +70,7 @@
 //   alpha = min(0.99, op * exp(min(power, 0))), power > 0 clamped (not
 //   skipped), both clamps passing NaN as jnp.minimum does, so a NaN opacity
 //   or conic fails the gate; alpha < 1/255 contributes nothing; pixel
-//   centres at +0.5; no early stop when T gets small.  power and alpha are rounded op by op
+//   centres at +0.5.  power and alpha are rounded op by op
 //   (__fmul_rn / __fadd_rn / __fsub_rn) in the order the plain PyTorch
 //   version evaluates them, so no FMA contraction can move an alpha across
 //   the 1/255 cut relative to it.
@@ -48,6 +80,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,11 +101,11 @@ __device__ __forceinline__ float clamp_max(float a, float hi) { return a > hi ? 
 // reads instead of walking twice
 template <bool kState>
 __global__ void __launch_bounds__(kPix)
-blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
-             const int32_t* __restrict__ starts, const int32_t* __restrict__ counts,
-             int n_feat, int n_idx, int tx_n, int width, float bg,
-             float* __restrict__ img, float* __restrict__ trans_out,
-             double* __restrict__ state) {
+blend_previous_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
+                      const int32_t* __restrict__ starts, const int32_t* __restrict__ counts,
+                      int n_feat, int n_idx, int tx_n, int width, float bg,
+                      float* __restrict__ img,
+                      float* __restrict__ trans_out, double* __restrict__ state) {
   __shared__ float s[kFeat][kPix];
   const int t = blockIdx.x;
   const int i = threadIdx.x;
@@ -134,6 +168,198 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
   img[3 * p + 0] = cr + bg * T;
   img[3 * p + 1] = cg + bg * T;
   img[3 * p + 2] = cb + bg * T;
+  trans_out[p] = T;
+}
+
+// ---------------------------------------------------------------------------
+// The pixels an entry can pass the gate at.  The gate passes only where
+//   op * exp(power) >= 1/255, i.e. q = -2 power <= 2 L, L = ln(op 255),
+// with power rounded in float.  For a positive definite conic Q = [[c0, c1],
+// [c1, c2]] the exact q of (dx, dy) is d^T Q d, and its float value differs
+// from it by at most a relative eta <= 32 u k, u = 2^-24 and
+// k = (1 + |r|) / (1 - |r|), r = c1 / sqrt(c0 c2), the ratio of the sum of
+// the terms' magnitudes to q (the six roundings of power and the two of dx,
+// dy, with a factor of two to spare).  So the gate passes only inside the
+// ellipse d^T Q d <= 2 L' with L' = (L + 2e-4 + 1e-6 L) / (1 - eta) (2e-4
+// for the float logf, expf and the product's roundings), whose box has half
+// widths sqrt(2 L' c2 / det) and sqrt(2 L' c0 / det), det = c0 c2 - c1^2;
+// they are widened by 1e-4 of themselves and 1e-3 pixel for the float
+// rounding of the box itself.  Where Q is not safely positive definite
+// (r^2 >= 0.998, a non-positive or non-finite c0, c2, c1), the box is the
+// whole plane; where op < 1/255 or is NaN, op exp(power) <= op fails the gate
+// everywhere and the box is empty.  gs_stream.py:blend_box_plain is the
+// same computation in PyTorch; tests/test_torch_render.py holds it to the
+// plain gate.
+// ---------------------------------------------------------------------------
+constexpr float kInf = __builtin_huge_valf();
+
+__device__ __forceinline__ float4 blend_box(float mx, float my, float c0, float c1, float c2,
+                                            float op) {
+  if (!(op >= kAlphaMin)) return make_float4(kInf, -kInf, kInf, -kInf);  // never passes
+  const float r2 = (c1 * c1) / (c0 * c2);
+  const bool pd = c0 > 0.0f && c2 > 0.0f && c0 < kInf && c2 < kInf && fabsf(c1) < kInf &&
+                  r2 < 0.998f;
+  float hx = kInf, hy = kInf;
+  if (pd) {
+    const float r = sqrtf(r2);
+    const float eta = 32.0f * 5.9604645e-8f * (1.0f + r) / (1.0f - r);
+    const float lg = logf(op) - logf(kAlphaMin);
+    const float l2 = 2.0f * (lg + 2e-4f + 1e-6f * lg) / (1.0f - eta);
+    const float det = c0 * c2 - c1 * c1;
+    hx = sqrtf(l2 * c2 / det) * 1.0001f + 1e-3f;
+    hy = sqrtf(l2 * c0 / det) * 1.0001f + 1e-3f;
+    if (!(hx >= 0.0f) || !(hy >= 0.0f)) hx = hy = kInf;  // NaN: no bound
+  }
+  if (hx == kInf || hy == kInf) return make_float4(-kInf, kInf, -kInf, kInf);
+  return make_float4(mx - hx, mx + hx, my - hy, my + hy);
+}
+
+enum BlendMode : int { kBlendShipped = 0, kBlendNoLists = 1, kBlendAlpha = 2, kBlendPrevious = 3 };
+
+// blend_kernel: kSplit blocks a tile, each on kRows of its rows, kThreadsB
+// threads (a warp an 8 x 4 block of pixels)
+constexpr int kSplit = 2, kRows = kTile / kSplit, kThreadsB = kTile * kRows;
+
+template <bool kState, int kMode>
+__global__ void __launch_bounds__(kThreadsB)
+blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
+             const int32_t* __restrict__ starts, const int32_t* __restrict__ counts,
+             int n_feat, int n_idx, int tx_n, int width, float bg,
+             float* __restrict__ img, float* __restrict__ trans_out,
+             double* __restrict__ state) {
+  constexpr bool kLists = kMode == kBlendShipped;
+  using Colour = std::conditional_t<kState, double, float>;
+  __shared__ float4 s_geo[kThreadsB];   // mx, my, -c0/2, -c1
+  __shared__ float2 s_geo2[kThreadsB];  // -c2/2, op
+  __shared__ float4 s_box[kThreadsB];   // x0, x1, y0, y1 (kLists)
+  __shared__ Colour s_col[3][kThreadsB];
+  // block b takes rows kRows (b % kSplit) .. + kRows - 1 of tile b / kSplit
+  const int part = blockIdx.x % kSplit;
+  const int t = blockIdx.x / kSplit;
+  const int i = threadIdx.x;
+  const int lane = i & 31, warp = i >> 5;
+  // a warp takes an 8 x 4 block of the tile's pixels (the lists' rectangle)
+  const int x0 = (t % tx_n) * kTile + (warp & 1) * 8;
+  const int y0 = (t / tx_n) * kTile + part * kRows + (warp >> 1) * 4;
+  const int x = x0 + (lane & 7);
+  const int y = y0 + (lane >> 3);
+  const float px = static_cast<float>(x) + 0.5f;
+  const float py = static_cast<float>(y) + 0.5f;
+  const float wx0 = static_cast<float>(x0) + 0.5f, wx1 = wx0 + 7.0f;
+  const float wy0 = static_cast<float>(y0) + 0.5f, wy1 = wy0 + 3.0f;
+
+  const int start = starts[t];
+  const int count = (start < 0 || start > n_idx) ? 0 : max(0, min(counts[t], n_idx - start));
+  float T = 1.0f, acc = 0.0f;
+  Colour cr = 0, cg = 0, cb = 0;
+
+  // the pair (this pixel, staged entry j): alpha, or 0 where the gate fails
+  auto gate = [&](int j) {
+    const float4 a = s_geo[j];
+    const float2 b = s_geo2[j];
+    const float dx = __fsub_rn(px, a.x);
+    const float dy = __fsub_rn(py, a.y);
+    // -0.5 (c0 dx dx + c2 dy dy) - c1 dx dy, scaled terms: the same bits
+    const float power = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a.z, dx), dx),
+                                            __fmul_rn(__fmul_rn(b.x, dy), dy)),
+                                  __fmul_rn(__fmul_rn(a.w, dx), dy));
+    const float alpha = clamp_max(__fmul_rn(b.y, expf(clamp_max(power, 0.0f))), kAlphaMax);
+    return alpha >= kAlphaMin ? alpha : 0.0f;  // as the JAX mask: NaN drops too
+  };
+  auto blend = [&](int j, float alpha) {
+    const float w = alpha * T;
+    if constexpr (kState) {  // exact products, one rounding a sum, as the backward repeats
+      const double wd = static_cast<double>(w);
+      cr += wd * s_col[0][j];
+      cg += wd * s_col[1][j];
+      cb += wd * s_col[2][j];
+    } else {
+      cr += w * s_col[0][j];
+      cg += w * s_col[1][j];
+      cb += w * s_col[2][j];
+    }
+    T *= 1.0f - alpha;
+  };
+
+  for (int base = 0; base < count; base += kThreadsB) {
+    if constexpr (kMode != kBlendAlpha) {
+      if (!__syncthreads_or(T != 0.0f)) break;  // every pixel opaque: nothing more to add
+    } else {
+      __syncthreads();  // the previous batch has been consumed
+    }
+    const int m = min(kThreadsB, count - base);
+    if (i < m) {
+      const int g = idx[start + base + i];
+      const bool ok = g >= 0 && g < n_feat;
+      const float* row = feat + static_cast<int64_t>(kFeat) * (ok ? g : 0);
+      float f[kFeat];
+#pragma unroll
+      for (int k = 0; k < kFeat; ++k) f[k] = ok ? row[k] : 0.0f;  // op 0: transparent
+      s_geo[i] = make_float4(f[0], f[1], -0.5f * f[2], -f[3]);
+      s_geo2[i] = make_float2(-0.5f * f[4], f[8]);
+      s_col[0][i] = f[5];
+      s_col[1][i] = f[6];
+      s_col[2][i] = f[7];
+      if constexpr (kLists) s_box[i] = blend_box(f[0], f[1], f[2], f[3], f[4], f[8]);
+    }
+    __syncthreads();
+    if constexpr (kMode == kBlendAlpha) {
+      for (int j = 0; j < m; ++j) acc += gate(j);
+    } else {
+      if (__all_sync(kFull, T == 0.0f)) continue;  // this warp adds nothing more
+      if constexpr (kLists) {
+        for (int c = 0; c < m; c += 32) {
+          const int jl = c + lane;
+          bool meets = false;
+          if (jl < m) {
+            const float4 bx = s_box[jl];
+            meets = bx.x <= wx1 && bx.y >= wx0 && bx.z <= wy1 && bx.w >= wy0;
+          }
+          // two gates in flight, then the two blends in order
+          for (unsigned list = __ballot_sync(kFull, meets); list != 0u;) {
+            const int j0 = c + __ffs(list) - 1;
+            list &= list - 1u;
+            if (list != 0u) {
+              const int j1 = c + __ffs(list) - 1;
+              list &= list - 1u;
+              const float a0 = gate(j0), a1 = gate(j1);
+              if (a0 != 0.0f) blend(j0, a0);
+              if (a1 != 0.0f) blend(j1, a1);
+            } else {
+              const float a0 = gate(j0);
+              if (a0 != 0.0f) blend(j0, a0);
+            }
+          }
+        }
+      } else {
+        for (int j = 0; j < m; ++j) {
+          const float alpha = gate(j);
+          if (alpha != 0.0f) blend(j, alpha);
+        }
+      }
+    }
+  }
+
+  const int64_t p = static_cast<int64_t>(y) * width + x;
+  float fr, fg, fb;
+  if constexpr (kState) {
+    fr = static_cast<float>(cr);
+    fg = static_cast<float>(cg);
+    fb = static_cast<float>(cb);
+    double* st = state + 4 * p;
+    st[0] = cr;
+    st[1] = cg;
+    st[2] = cb;
+    st[3] = T;
+  } else {
+    fr = cr;
+    fg = cg;
+    fb = cb;
+  }
+  if constexpr (kMode == kBlendAlpha) fr = acc;  // keeps the gate's work live
+  img[3 * p + 0] = fr + bg * T;
+  img[3 * p + 1] = fg + bg * T;
+  img[3 * p + 2] = fb + bg * T;
   trans_out[p] = T;
 }
 
@@ -417,24 +643,58 @@ blend_backward_kernel(const float* __restrict__ feat, const int32_t* __restrict_
   }
 }
 
+struct BlendArgs {
+  const float* feat;
+  const int32_t *idx, *starts, *counts;
+  int n_feat, n_idx, tx_n;
+  float bg;
+  float *img, *trans;
+  double* state;
+};
+
+template <bool kState>
+bool launch_blend(int mode, int n_tiles, const BlendArgs& a, cudaStream_t s) {
+  const int width = a.tx_n * kTile;
+#define PIXIE_BLEND_ARGS                                                                   \
+  a.feat, a.idx, a.starts, a.counts, a.n_feat, a.n_idx, a.tx_n, width, a.bg, a.img, \
+      a.trans, a.state
+  switch (mode) {
+    case kBlendShipped:
+      blend_kernel<kState, kBlendShipped><<<kSplit * n_tiles, kThreadsB, 0, s>>>(PIXIE_BLEND_ARGS);
+      return true;
+    case kBlendNoLists:
+      blend_kernel<kState, kBlendNoLists><<<kSplit * n_tiles, kThreadsB, 0, s>>>(PIXIE_BLEND_ARGS);
+      return true;
+    case kBlendAlpha:
+      blend_kernel<kState, kBlendAlpha><<<kSplit * n_tiles, kThreadsB, 0, s>>>(PIXIE_BLEND_ARGS);
+      return true;
+    case kBlendPrevious:
+      blend_previous_kernel<kState><<<n_tiles, kPix, 0, s>>>(PIXIE_BLEND_ARGS);
+      return true;
+    default:
+      return false;
+  }
+#undef PIXIE_BLEND_ARGS
+}
+
 }  // namespace
 
 extern "C" {
 
-// state (H*W, 4) double, or null: each pixel's colour before the background
-// (summed in double) and its final T, which the backward reads instead of
-// walking twice
-int pixie_gs_blend(const float* feat, const int32_t* idx, const int32_t* starts,
+// mode 0 is the shipped blend; the ablations: 1 nolists, 2 alpha (the gate
+// of every pair, no compositing), 3 previous (scalar staging, no lists, no
+// early exit).  state (H*W, 4) double, or null: each pixel's colour before
+// the background (summed in double) and its final T, which the backward
+// reads instead of walking twice
+int pixie_gs_blend(int mode, const float* feat, const int32_t* idx, const int32_t* starts,
                    const int32_t* counts, int n_feat, int n_idx, int n_tiles, int tx_n,
                    float bg, float* img, float* trans, double* state, void* stream) {
   if (n_tiles > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (state != nullptr)
-      blend_kernel<true><<<n_tiles, kPix, 0, s>>>(feat, idx, starts, counts, n_feat, n_idx, tx_n,
-                                                  tx_n * kTile, bg, img, trans, state);
-    else
-      blend_kernel<false><<<n_tiles, kPix, 0, s>>>(feat, idx, starts, counts, n_feat, n_idx,
-                                                   tx_n, tx_n * kTile, bg, img, trans, state);
+    const BlendArgs a{feat, idx, starts, counts, n_feat, n_idx, tx_n, bg, img, trans, state};
+    const bool ok = state != nullptr ? launch_blend<true>(mode, n_tiles, a, s)
+                                     : launch_blend<false>(mode, n_tiles, a, s);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,15 @@
 // Per-particle MLS-MPM device math shared by the transfer kernels
 // (transfer.cu), the fused substep (fused_substep.cu) and the P2G ablation
 // probe (probe_ablation.cu): the quadratic B-spline stencil, the P2G splat
-// of one particle, Warp's 3x3 SVD and the constitutive models.
+// of one particle and the run sums of a warp's same-cell lanes, Warp's 3x3
+// SVD and the constitutive models.
 //
 // Every function is a term-for-term port of the package's PyTorch code, so
 // the kernels compute what the plain versions compute:
 //   spline_weights   ops/transfer.py:_spline_weights
-//   p2g_nodes,       ops/transfer.py:p2g_contributions (and the ablations
-//   p2g_particle     of ops/probe_ablation.py)
+//   splat_nodes,     ops/transfer.py:p2g_contributions (and the ablations
+//   p2g_nodes,       of ops/probe_ablation.py)
+//   p2g_particle
 //   svd3             sim/svd3.py:svd3 (cyclic Jacobi on F^T F, sorting
 //                    network, Gram-Schmidt with cross completion, Warp's
 //                    sign convention; every threshold as written there)
@@ -61,10 +63,11 @@ __device__ __forceinline__ Spline spline_weights(const float* xp, float inv_dx) 
 // P2G of particle p: the APIC splat of mass, m (v + C dpos) and
 // -vol dt sigma grad(w) onto the 27 nodes around it, with the RPIC / PIC
 // damping of C; out-of-grid nodes are dropped (sim/solver.py:60-128).
-// p2g_nodes computes each in-grid node's contribution (with kAllNodes,
-// every node's) and hands it to a sink, sink(gi, gj, gk, momentum x, y, z,
-// mass): the binned P2G of transfer.cu (B1) sums it over a run of lanes
-// first, p2g_particle adds it into the global grid or registers.
+// splat_nodes computes each in-grid node's contribution (with kAllNodes,
+// every node's) from values in registers, p2g_nodes from particle p's
+// arrays, and hands it to a sink, sink(gi, gj, gk, momentum x, y, z,
+// mass): B1 and B6 sum it over a run of lanes first (RunSink),
+// p2g_particle adds it into the global grid or registers.
 // p2g_particle<kP2GFull> is the one-thread-per-particle splat with 108
 // global atomics that B1 ran until it was binned; the other modes are the
 // ablations that the P1 probe times (probe_ablation.cu), each differing
@@ -83,22 +86,8 @@ __device__ __forceinline__ Spline spline_weights(const float* xp, float inv_dx) 
 enum P2GMode : int { kP2GFull = 0, kP2GNoWeights = 1, kP2GNoAtomics = 2, kP2GMinimal = 3 };
 constexpr float kAblate = 0.1f;
 
-template <int kMode, bool kAllNodes = false, class Sink>
-__device__ __forceinline__ void p2g_nodes(int p, const float* __restrict__ x,
-                                          const float* __restrict__ v,
-                                          const float* __restrict__ C,
-                                          const float* __restrict__ stress,
-                                          const float* __restrict__ mass,
-                                          const float* __restrict__ vol, int n_grid, float dx,
-                                          float inv_dx, float dt, float rpic_damping,
-                                          Sink&& sink) {
-  // kP2GNoWeights reads only s.base: the rest of the stencil is dead code
-  const Spline s = spline_weights(x + 3 * p, inv_dx);
-
-  // RPIC / PIC damping of C (solver.py:73-80)
-  float c[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) c[k] = C[9 * p + k];
+// RPIC / PIC damping of C in place (solver.py:73-80)
+__device__ __forceinline__ void damp_C(float (&c)[9], float rpic_damping) {
   if (rpic_damping < -0.001f) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) c[k] = 0.0f;
@@ -113,16 +102,16 @@ __device__ __forceinline__ void p2g_nodes(int p, const float* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < 9; ++k) c[k] = d[k];
   }
+}
 
-  const float m = mass[p];
-  const float nvol = -vol[p];
-  float sc[9];  // -vol * stress * dt
-#pragma unroll
-  for (int k = 0; k < 9; ++k) sc[k] = nvol * stress[9 * p + k] * dt;
-  const float vx = v[3 * p], vy = v[3 * p + 1], vz = v[3 * p + 2];
-
-  // kAllNodes visits out-of-grid nodes too (the sink drops them), so that
-  // every lane of a warp calls the sink 27 times
+// the splat of one particle from registers: stencil s, velocity (vx, vy,
+// vz), damped C c, mass m and sc = -vol dt stress; kAllNodes visits
+// out-of-grid nodes too (the sink drops them), so that every lane of a warp
+// calls the sink 27 times
+template <int kMode, bool kAllNodes = false, class Sink>
+__device__ __forceinline__ void splat_nodes(const Spline& s, float vx, float vy, float vz,
+                                            const float (&c)[9], float m, const float (&sc)[9],
+                                            int n_grid, float dx, float inv_dx, Sink&& sink) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int gi = s.base[0] + i;
@@ -162,6 +151,29 @@ __device__ __forceinline__ void p2g_nodes(int p, const float* __restrict__ x,
   }
 }
 
+template <int kMode, bool kAllNodes = false, class Sink>
+__device__ __forceinline__ void p2g_nodes(int p, const float* __restrict__ x,
+                                          const float* __restrict__ v,
+                                          const float* __restrict__ C,
+                                          const float* __restrict__ stress,
+                                          const float* __restrict__ mass,
+                                          const float* __restrict__ vol, int n_grid, float dx,
+                                          float inv_dx, float dt, float rpic_damping,
+                                          Sink&& sink) {
+  // kP2GNoWeights reads only s.base: the rest of the stencil is dead code
+  const Spline s = spline_weights(x + 3 * p, inv_dx);
+  float c[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c[k] = C[9 * p + k];
+  damp_C(c, rpic_damping);
+  const float nvol = -vol[p];
+  float sc[9];  // -vol * stress * dt
+#pragma unroll
+  for (int k = 0; k < 9; ++k) sc[k] = nvol * stress[9 * p + k] * dt;
+  splat_nodes<kMode, kAllNodes>(s, v[3 * p], v[3 * p + 1], v[3 * p + 2], c, mass[p], sc, n_grid,
+                                dx, inv_dx, sink);
+}
+
 // one float atomicAdd per component into the (G^3, 4) grid
 __device__ __forceinline__ void atomic_add_node(float* __restrict__ grid, int n_grid, int gi,
                                                 int gj, int gk, float mx, float my, float mz,
@@ -172,6 +184,76 @@ __device__ __forceinline__ void atomic_add_node(float* __restrict__ grid, int n_
   atomicAdd(node + 2, mz);
   atomicAdd(node + 3, wm);
 }
+
+// ---------------------------------------------------------------------------
+// Run sums of a warp (B1's splat, and B6's): lanes that share a base cell
+// share all 27 nodes, so each run of adjacent such lanes sums its values with
+// shuffles and only its last lane adds them into the grid.  A run is formed
+// from each lane's own cell, so the sum is exact in any order; an order that
+// puts a cell's lanes side by side only makes the runs long.
+// ---------------------------------------------------------------------------
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// flat index of the cell of base + 2, unique over the bases whose stencil
+// reaches the grid (-2 <= base <= n_grid - 1 on each axis): the run label
+__device__ __forceinline__ int cell_label(const Spline& s, int n_grid) {
+  const int side = n_grid + 2;
+  return ((s.base[0] + 2) * side + (s.base[1] + 2)) * side + (s.base[2] + 2);
+}
+
+// whether the stencil of base cell s.base has a node in the grid
+__device__ __forceinline__ bool stencil_in_grid(const Spline& s, int n_grid) {
+  return s.base[0] >= -2 && s.base[0] <= n_grid - 1 && s.base[1] >= -2 &&
+         s.base[1] <= n_grid - 1 && s.base[2] >= -2 && s.base[2] <= n_grid - 1;
+}
+
+// Runs of equal labels among adjacent lanes: the first lane of this lane's
+// run, and whether it is the run's last lane.
+struct Run {
+  int first;
+  bool last;
+};
+
+__device__ __forceinline__ Run lane_run(int label, int lane) {
+  const int prev = __shfl_up_sync(kFullMask, label, 1);
+  const int next = __shfl_down_sync(kFullMask, label, 1);
+  const unsigned heads = __ballot_sync(kFullMask, lane == 0 || prev != label);
+  return {31 - __clz(heads & (kFullMask >> (31 - lane))), lane == 31 || next != label};
+}
+
+// inclusive sum over the lanes of the run up to this one: the run's total
+// at its last lane (5 shuffles)
+__device__ __forceinline__ float run_sum(float v, int lane, int first) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(kFullMask, v, off);
+    if (lane - off >= first) v += u;
+  }
+  return v;
+}
+
+__device__ __forceinline__ bool in_grid(int gi, int gj, int gk, int n_grid) {
+  return gi >= 0 && gi < n_grid && gj >= 0 && gj < n_grid && gk >= 0 && gk < n_grid;
+}
+
+// sink of splat_nodes<kP2GFull, true>: each node's four values summed over
+// the lane's run, added into the grid by the run's last lane where the node
+// is in the grid
+struct RunSink {
+  bool live;
+  Run run;
+  int lane, n_grid;
+  float* grid;
+  __device__ __forceinline__ void operator()(int gi, int gj, int gk, float mx, float my,
+                                             float mz, float wm) const {
+    const float s0 = run_sum(live ? mx : 0.0f, lane, run.first);
+    const float s1 = run_sum(live ? my : 0.0f, lane, run.first);
+    const float s2 = run_sum(live ? mz : 0.0f, lane, run.first);
+    const float s3 = run_sum(live ? wm : 0.0f, lane, run.first);
+    if (live && run.last && in_grid(gi, gj, gk, n_grid))
+      atomic_add_node(grid, n_grid, gi, gj, gk, s0, s1, s2, s3);
+  }
+};
 
 template <int kMode>
 __device__ __forceinline__ void p2g_particle(int p, const float* __restrict__ x,

@@ -109,62 +109,6 @@ __global__ void p2g_keys_kernel(const float* __restrict__ x, const uint8_t* __re
   keys[p] = (bin << hbits) | static_cast<int32_t>(low);
 }
 
-// flat index of the cell of base + 2, unique over the grid: the run label
-__device__ __forceinline__ int base_cell(const float* xp, float inv_dx, int n_grid) {
-  const Spline s = spline_weights(xp, inv_dx);
-  const int side = n_grid + 2;
-  return ((s.base[0] + 2) * side + (s.base[1] + 2)) * side + (s.base[2] + 2);
-}
-
-// Runs of equal labels among the warp's lanes (labels sorted, so equal ones
-// are adjacent): the first lane of this lane's run, and whether it is the
-// run's last lane.
-struct Run {
-  int first;
-  bool last;
-};
-
-__device__ __forceinline__ Run lane_run(int label, int lane) {
-  const int prev = __shfl_up_sync(kFull, label, 1);
-  const int next = __shfl_down_sync(kFull, label, 1);
-  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != label);
-  return {31 - __clz(heads & (kFull >> (31 - lane))), lane == 31 || next != label};
-}
-
-// inclusive sum over the lanes of the run up to this one: the run's total
-// at its last lane (5 shuffles)
-__device__ __forceinline__ float run_sum(float v, int lane, int first) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(kFull, v, off);
-    if (lane - off >= first) v += u;
-  }
-  return v;
-}
-
-__device__ __forceinline__ bool in_grid(int gi, int gj, int gk, int n_grid) {
-  return gi >= 0 && gi < n_grid && gj >= 0 && gj < n_grid && gk >= 0 && gk < n_grid;
-}
-
-// sink of p2g_nodes<kP2GFull, true>: each node's four values summed over
-// the lane's run, added into the grid by the run's last lane where the node
-// is in the grid
-struct RunSink {
-  bool live;
-  Run run;
-  int lane, n_grid;
-  float* grid;
-  __device__ __forceinline__ void operator()(int gi, int gj, int gk, float mx, float my,
-                                             float mz, float wm) const {
-    const float s0 = run_sum(live ? mx : 0.0f, lane, run.first);
-    const float s1 = run_sum(live ? my : 0.0f, lane, run.first);
-    const float s2 = run_sum(live ? mz : 0.0f, lane, run.first);
-    const float s3 = run_sum(live ? wm : 0.0f, lane, run.first);
-    if (live && run.last && in_grid(gi, gj, gk, n_grid))
-      pixie::atomic_add_node(grid, n_grid, gi, gj, gk, s0, s1, s2, s3);
-  }
-};
-
 __global__ void __launch_bounds__(kThreads)
 p2g_binned_kernel(const int32_t* __restrict__ keys, const int64_t* __restrict__ perm,
                   const float* __restrict__ x, const float* __restrict__ v,
@@ -178,9 +122,11 @@ p2g_binned_kernel(const int32_t* __restrict__ keys, const int64_t* __restrict__ 
   const bool live = q < n && (keys[q] >> hbits) < nbins;
   if (!__any_sync(kFull, live)) return;
   const int p = live ? static_cast<int>(perm[q]) : 0;
-  const Run run = lane_run(live ? base_cell(x + 3 * p, inv_dx, n_grid) : -1 - lane, lane);
+  const pixie::Run run = pixie::lane_run(
+      live ? pixie::cell_label(spline_weights(x + 3 * p, inv_dx), n_grid) : -1 - lane, lane);
   pixie::p2g_nodes<pixie::kP2GFull, true>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt,
-                                          rpic_damping, RunSink{live, run, lane, n_grid, grid});
+                                          rpic_damping,
+                                          pixie::RunSink{live, run, lane, n_grid, grid});
 }
 
 // ---------------------------------------------------------------------------

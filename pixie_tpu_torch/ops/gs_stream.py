@@ -44,8 +44,11 @@ ALPHA_MAX = 0.99
 
 BLEND_LAUNCHES = 0
 BLEND_BWD_LAUNCHES = 0
-# ablation modes of the backward kernel (csrc/gs_stream.cu flags): timed by
-# chip_smoke.py, called by no path of the port
+# ablation modes of the kernels (csrc/gs_stream.cu flags): timed by
+# chip_smoke.py, called by no path of the port.  The forward's: without the
+# per-warp entry lists, the gate of every pair without compositing, and the
+# previous schedule (nine scalar shared loads a pair, no lists, no exit)
+BLEND_MODES = {"nolists": 1, "alpha": 2, "previous": 3}
 BWD_MODES = {"noreduce": 2, "pass1": 4}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -54,7 +57,7 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = load_library("gs_stream")
     if not getattr(lib, "_pixie_typed", False):
-        lib.pixie_gs_blend.argtypes = [_c_void_p] * 4 + [_c_int] * 4 + [
+        lib.pixie_gs_blend.argtypes = [_c_int] + [_c_void_p] * 4 + [_c_int] * 4 + [
             _c_float] + [_c_void_p] * 4
         lib.pixie_gs_blend.restype = _c_int
         lib.pixie_gs_blend_backward.argtypes = [_c_int] + [_c_void_p] * 4 + [_c_int] * 4 + [
@@ -132,6 +135,32 @@ def blend_plain(feat, idx, starts, counts, tx_n: int, bg: float = 0.0):
         trans = trans * torch.exp(torch.sum(logm, -1))
     img = color + bg * trans[..., None]
     return _tiles_to_image(img, tx_n), _tiles_to_image(trans, tx_n)
+
+
+def blend_box_plain(feat: torch.Tensor) -> torch.Tensor:
+    """(N, 4) [x0, x1, y0, y1] per gaussian: a box outside which its gate
+    alpha >= 1/255 fails at every pixel, as ``csrc/gs_stream.cu:blend_box``
+    computes it for the kernel's per-warp entry lists (see the derivation
+    there): the whole plane where the conic is not safely positive definite,
+    empty where the opacity is below 1/255 or NaN."""
+    mx, my, c0, c1, c2, op = (feat[:, k] for k in (0, 1, 2, 3, 4, 8))
+    inf = torch.full_like(mx, float("inf"))
+    r2 = (c1 * c1) / (c0 * c2)
+    pd = (c0 > 0) & (c2 > 0) & torch.isfinite(c0) & torch.isfinite(c2) & torch.isfinite(c1) \
+        & (r2 < 0.998)
+    r = torch.sqrt(torch.where(pd, r2, 0.0))
+    eta = 32.0 * 5.9604645e-8 * (1.0 + r) / (1.0 - r)
+    lg = torch.log(op) - torch.log(torch.tensor(ALPHA_MIN, dtype=torch.float32))
+    l2 = 2.0 * (lg + 2e-4 + 1e-6 * lg) / (1.0 - eta)
+    det = c0 * c2 - c1 * c1
+    hx = torch.sqrt(l2 * c2 / det) * 1.0001 + 1e-3
+    hy = torch.sqrt(l2 * c0 / det) * 1.0001 + 1e-3
+    bounded = pd & (hx >= 0) & (hy >= 0) & (hx < inf) & (hy < inf)
+    box = torch.stack([torch.where(bounded, mx - hx, -inf), torch.where(bounded, mx + hx, inf),
+                       torch.where(bounded, my - hy, -inf), torch.where(bounded, my + hy, inf)],
+                      -1)
+    never = ~(op >= ALPHA_MIN)
+    return torch.where(never[:, None], torch.stack([inf, -inf, inf, -inf], -1), box)
 
 
 def _image_to_tiles(img: torch.Tensor, tx_n: int) -> torch.Tensor:
@@ -227,6 +256,24 @@ def _blend_forward(feat, idx, starts, counts, tx_n: int, bg: float, keep_state: 
     if feat.device.type != "cuda":
         raise ValueError(f"blend: unsupported device {feat.device}")
     global BLEND_LAUNCHES
+    out = _launch_forward(0, feat, idx, starts, counts, tx_n, bg, keep_state)
+    BLEND_LAUNCHES += 1
+    return out
+
+
+def blend_forward_variant(mode: str, feat, idx, starts, counts, tx_n: int, bg: float = 0.0,
+                          keep_state: bool = False):
+    """The blend kernel on CUDA tensors in an ablation mode (``BLEND_MODES``,
+    or "shipped"): (img, trans, state or None).  Not counted in
+    BLEND_LAUNCHES."""
+    if feat.device.type != "cuda":
+        raise ValueError(f"blend {mode}: a kernel ablation, CUDA only")
+    return _launch_forward({"shipped": 0, **BLEND_MODES}[mode], feat, idx, starts, counts, tx_n, bg,
+                           keep_state)
+
+
+def _launch_forward(mode: int, feat, idx, starts, counts, tx_n: int, bg: float,
+                    keep_state: bool):
     n, m, n_tiles = _check(feat, idx, starts, counts, tx_n)
     h, w = n_tiles // tx_n * TILE, tx_n * TILE
     img = torch.empty((h, w, 3), dtype=torch.float32, device=feat.device)
@@ -234,12 +281,11 @@ def _blend_forward(feat, idx, starts, counts, tx_n: int, bg: float, keep_state: 
     state = (torch.empty((h * w, 4), dtype=torch.float64, device=feat.device) if keep_state
              else None)
     lib = _lib()
-    code = lib.pixie_gs_blend(feat.data_ptr(), idx.data_ptr(), starts.data_ptr(),
+    code = lib.pixie_gs_blend(mode, feat.data_ptr(), idx.data_ptr(), starts.data_ptr(),
                               counts.data_ptr(), n, m, n_tiles, tx_n, float(bg),
                               img.data_ptr(), trans.data_ptr(),
                               0 if state is None else state.data_ptr(), _stream(feat.device))
     raise_on_error(lib, code, "gs blend")
-    BLEND_LAUNCHES += 1
     return img, trans, state
 
 

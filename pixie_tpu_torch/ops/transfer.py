@@ -186,15 +186,25 @@ def p2g_bin_keys(x, active, n_grid: int, inv_dx: float) -> torch.Tensor:
     return keys
 
 
-def p2g(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
+def cell_order(x, active, cfg: MPMConfig) -> torch.Tensor:
+    """(N,) int64 permutation of the particles by P2G bin key, so by cell
+    (``torch.sort`` of ``p2g_bin_keys``): the order B1 splats in, into which
+    the fused frame sorts its state."""
+    return torch.sort(p2g_bin_keys(x, active, cfg.n_grid, cfg.inv_dx)).indices
+
+
+def p2g(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt, return_order: bool = False):
     """Particle-to-grid scatter of momentum, mass and stress force.
 
     x, v (N,3); C, stress (N,3,3); mass, vol (N,); active (N,) bool
-    (selection == 0).  Returns grid (G,G,G,4): [momentum x, y, z, mass].
-    On CUDA: the key kernel, ``torch.sort`` of the keys, the binned splat.
+    (selection == 0).  Returns grid (G,G,G,4): [momentum x, y, z, mass],
+    and with ``return_order`` also the cell order it splatted in (None on
+    CPU tensors).  On CUDA: the key kernel, ``torch.sort`` of the keys, the
+    binned splat.
     """
     if x.device.type == "cpu":
-        return p2g_plain(x, v, C, stress, mass, vol, active, cfg, dt)
+        grid = p2g_plain(x, v, C, stress, mass, vol, active, cfg, dt)
+        return (grid, None) if return_order else grid
     if x.device.type != "cuda":
         raise ValueError(f"p2g: unsupported device {x.device}")
     global P2G_LAUNCHES
@@ -214,7 +224,7 @@ def p2g(x, v, C, stress, mass, vol, active, cfg: MPMConfig, dt) -> torch.Tensor:
                          cfg.rpic_damping, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(lib, code, "p2g")
     P2G_LAUNCHES += 1
-    return grid
+    return (grid, perm) if return_order else grid
 
 
 # -- G2P -----------------------------------------------------------------------

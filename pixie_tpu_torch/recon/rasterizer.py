@@ -19,15 +19,17 @@ keys, sort and ranges are integer work and carry no gradient.
 the per-gaussian screen-space gradient that drives densification.
 
 The binning is plain PyTorch, as XLA ops surround the Pallas kernel in the
-JAX package.  Both truncations of the JAX tiled path are mirrored: a splat
-reaches at most ``max_tiles_side``² tiles from its clamped bbox start, and
-a tile blends its front-most ``tile_cap`` splats.  JAX's two kernel
-layouts of that list, the 128-aligned stream (``blend_stream``, tile_cap a
-multiple of 128 up to 1152) and the dense (T, tile_cap) slot table
-(``blend_tiles``, any other tile_cap), are TPU layouts of one function:
-both run here on the exact per-tile index lists.  The index list is
-allocated exactly, so no tile renders empty for lack of stream rows
-(``jax_stream_overflows`` says when JAX's stream would).
+JAX package.  Every truncation of the JAX tiled path is mirrored: a splat
+reaches at most ``max_tiles_side``² tiles from its clamped bbox start, a
+tile blends its front-most ``tile_cap`` splats, and on JAX's stream branch
+a tile whose 128-row chunks overflow ``stream_cap`` rows renders empty.
+JAX's two kernel layouts of the list, the 128-aligned stream
+(``blend_stream``, tile_cap a multiple of 128 up to 1152) and the dense
+(T, tile_cap) slot table (``blend_tiles``, any other tile_cap), are TPU
+layouts of one function: both run here on the exact per-tile index lists,
+and only the stream's budget changes the counts.  JAX's third branch, the
+XLA scan for ``tile != 16`` or ``use_pallas_blend=False``, is no kernel
+there: it is plain PyTorch here (``_blend_scan``), with its own numerics.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pixie_tpu_torch.ops import gs_stream
 from pixie_tpu_torch.recon import gaussians as G
@@ -180,10 +183,38 @@ class TileBins:
     tx_n: int
 
 
+def on_stream_branch(tile: int, tile_cap: int, stream_cap: int | None = 0,
+                     use_pallas_blend: bool | None = None) -> bool:
+    """Whether JAX's rasterize_tiled takes its stream branch (rasterizer.py:433-435)."""
+    if use_pallas_blend is None:
+        use_pallas_blend = tile == 16
+    ch = gs_stream.CH
+    return (stream_cap is not None and use_pallas_blend and tile == 16
+            and tile_cap % ch == 0 and 1 <= tile_cap // ch <= 9)
+
+
+def stream_counts(raw: torch.Tensor, tile_cap: int, n: int, stream_cap: int) -> torch.Tensor:
+    """Entries blended per tile under JAX's stream budget (rasterizer.py:439-453):
+    min(raw, tile_cap), zeroed for every tile whose chunks of 128, summed over
+    the tiles before it and itself, exceed ``stream_cap // 128``; stream_cap
+    0 is JAX's default, 4N rows plus one chunk a tile."""
+    ch, n_tiles = gs_stream.CH, raw.shape[0]
+    if stream_cap == 0:
+        stream_cap = (-(-4 * n // ch) + n_tiles) * ch
+    if stream_cap % ch:
+        raise ValueError(f"stream_cap={stream_cap} must be a multiple of {ch}")
+    count = torch.clamp(raw, max=tile_cap)
+    fits = torch.cumsum((count + ch - 1) // ch, 0) <= stream_cap // ch
+    return torch.where(fits, count, 0)
+
+
 def bin_tiles(params, viewmat, cam: Camera, scaling_modifier=1.0, tile: int = 16,
-              tile_cap: int = 512, max_tiles_side: int = 6, mean2d_offset=None) -> TileBins:
-    """Projection and tile binning of ``rasterize_tiled`` (rasterizer.py:363-429);
-    ``feat`` carries the gradient back to ``params`` and ``mean2d_offset``."""
+              tile_cap: int = 512, max_tiles_side: int = 6, mean2d_offset=None,
+              stream_cap: int | None = 0) -> TileBins:
+    """Projection and tile binning of ``rasterize_tiled`` (rasterizer.py:363-454);
+    ``feat`` carries the gradient back to ``params`` and ``mean2d_offset``.
+    Where JAX's stream branch would run (``on_stream_branch``), the counts
+    carry its ``stream_cap`` budget."""
     means2d, cov2d, depth, rgb, opacity = project_gaussians(
         params, viewmat, cam, scaling_modifier)
     if mean2d_offset is not None:
@@ -228,21 +259,17 @@ def bin_tiles(params, viewmat, cam: Camera, scaling_modifier=1.0, tile: int = 16
     n_valid = int(valid.sum())
     idx = perm[skey[:n_valid] % max(n, 1)].to(torch.int32)
     feat = torch.cat([means2d, conic, rgb, opacity[:, None]], -1).contiguous()
+    counts = (stream_counts(raw, tile_cap, n, stream_cap)
+              if on_stream_branch(tile, tile_cap, stream_cap) else torch.clamp(raw, max=tile_cap))
     return TileBins(feat=feat, idx=idx, starts=starts.to(torch.int32),
-                    counts=torch.clamp(raw, max=tile_cap).to(torch.int32), raw=raw,
-                    tx_n=tx_n)
+                    counts=counts.to(torch.int32), raw=raw, tx_n=tx_n)
 
 
 def jax_stream_overflows(bins: TileBins) -> bool:
-    """Whether the JAX stream path (rasterizer.py:439-454) would render some
-    tiles empty at this scene: its default stream holds
-    (ceil(4N/128) + T) * 128 rows and each tile takes its count rounded up
-    to whole 128-row chunks."""
-    ch = gs_stream.CH
-    n, n_tiles = bins.feat.shape[0], bins.starts.shape[0]
-    n_blocks = -(-4 * n // ch) + n_tiles
-    need = int(((bins.counts.to(torch.int64) + ch - 1) // ch).sum())
-    return need > n_blocks
+    """Whether the stream budget blanked a tile of these bins: a tile with
+    entries and a count of 0 (tile_cap is at least 128 on the stream branch,
+    so nothing else zeroes a count)."""
+    return bool(((bins.counts == 0) & (bins.raw > 0)).any())
 
 
 def slot_table_chunk(tile_cap: int, chunk: int) -> int | None:
@@ -266,24 +293,96 @@ def slot_table_chunk(tile_cap: int, chunk: int) -> int | None:
     return kchunk
 
 
+def _blend_scan(bins: TileBins, tile: int, tile_cap: int, chunk: int, bg_color: float):
+    """JAX's XLA-scan blend (rasterizer.py:535-595) in plain PyTorch: each
+    tile's front-most tile_cap entries in chunks of ``chunk`` against all
+    its pixels, the exclusive product as cum / (1 - alpha); differentiable
+    in ``bins.feat`` by autograd, each chunk recomputed in the backward as
+    JAX's ``jax.checkpoint`` does.  Returns (color + bg T, T) per tile
+    pixel, (T, tile, tile, ...)."""
+    n_tiles, dev, m = bins.starts.shape[0], bins.feat.device, bins.idx.shape[0]
+    slot = torch.arange(tile_cap, device=dev)
+    slot_ok = slot[None, :] < bins.counts.to(torch.int64)[:, None]          # (T, C)
+    pos = torch.clamp(bins.starts.to(torch.int64)[:, None] + slot[None, :], 0, max(m - 1, 0))
+    gidx = torch.where(slot_ok, bins.idx[pos].to(torch.int64), 0) if m else \
+        torch.zeros_like(pos)
+    g = torch.where(slot_ok[..., None], bins.feat[gidx], 0.0)               # (T, C, 9)
+    t_ids = torch.arange(n_tiles, device=dev)
+    px = torch.arange(tile, dtype=torch.float32, device=dev) + 0.5
+    pix_x = (((t_ids % bins.tx_n) * tile).to(torch.float32)[:, None, None]
+             + px[None, None, :]).expand(n_tiles, tile, tile)
+    pix_y = (((t_ids // bins.tx_n) * tile).to(torch.float32)[:, None, None]
+             + px[None, :, None]).expand(n_tiles, tile, tile)
+
+    def blend_chunk(color, trans, gk):
+        m2, cn, col, o = gk[..., 0:2], gk[..., 2:5], gk[..., 5:8], gk[..., 8]
+        dx = pix_x[..., None] - m2[:, None, None, :, 0]                  # (T, t, t, chunk)
+        dy = pix_y[..., None] - m2[:, None, None, :, 1]
+        power = (-0.5 * (cn[:, None, None, :, 0] * dx * dx + cn[:, None, None, :, 2] * dy * dy)
+                 - cn[:, None, None, :, 1] * dx * dy)
+        alpha = torch.clamp(o[:, None, None, :] * torch.exp(torch.clamp(power, max=0.0)),
+                            max=gs_stream.ALPHA_MAX)
+        alpha = torch.where(alpha < gs_stream.ALPHA_MIN, 0.0, alpha)
+        one_minus = 1.0 - alpha
+        cum = torch.cumprod(one_minus, -1)
+        w = alpha * (cum / one_minus) * trans[..., None]
+        color = color + torch.stack(
+            [torch.sum(w * col[:, None, None, :, e], -1) for e in range(3)], -1)
+        return color, trans * cum[..., -1]
+
+    color = torch.zeros((n_tiles, tile, tile, 3), dtype=torch.float32, device=dev)
+    trans = torch.ones((n_tiles, tile, tile), dtype=torch.float32, device=dev)
+    for k in range(tile_cap // chunk):
+        gk = g[:, k * chunk:(k + 1) * chunk]
+        if torch.is_grad_enabled() and g.requires_grad:
+            color, trans = checkpoint(blend_chunk, color, trans, gk, use_reentrant=False)
+        else:
+            color, trans = blend_chunk(color, trans, gk)
+    return color + bg_color * trans[..., None], trans
+
+
+def _tiles_to_image(per_tile: torch.Tensor, tx_n: int, tile: int) -> torch.Tensor:
+    """(T, tile, tile, ...) per-tile pixels -> (H, W, ...) image."""
+    ty_n, rest = per_tile.shape[0] // tx_n, per_tile.shape[3:]
+    img = per_tile.reshape(ty_n, tx_n, tile, tile, *rest).transpose(1, 2)
+    return img.reshape(ty_n * tile, tx_n * tile, *rest)
+
+
 def rasterize_tiled(params, viewmat, cam: Camera, bg_color=1.0, scaling_modifier=1.0,
                     tile: int = 16, tile_cap: int = 512, max_tiles_side: int = 6,
-                    chunk: int = 128, mean2d_offset=None):
-    """Tile-culled differentiable rasterization: (image (H,W,3), alpha (H,W)).
+                    chunk: int = 128, mean2d_offset=None, use_pallas_blend: bool | None = None,
+                    stream_cap: int | None = 0):
+    """Tile-culled differentiable rasterization: (image (H,W,3), alpha (H,W)),
+    with JAX's signature and branches.  H and W must be multiples of ``tile``.
 
-    H and W must be multiples of ``tile`` (16).  Both kernel branches of the
-    JAX function, the stream (rasterizer.py:433-488) and the slot table
-    (B5, :490-533), blend each tile's front-most ``tile_cap`` splats; here
-    both run in ``ops/gs_stream.blend`` (the CUDA kernels on CUDA tensors).
-    ``chunk`` only decides, as in JAX, which tile_caps are accepted.  Other
-    tile sizes are JAX's XLA-scan branch, which is not ported."""
-    if tile != 16:
-        raise NotImplementedError(f"tile={tile}: the blend kernels take 16x16 tiles")
+    ``use_pallas_blend`` (None: ``tile == 16``) selects JAX's kernel
+    branches, the stream (rasterizer.py:433-488) and the slot table (B5,
+    :490-533); both blend each tile's front-most ``tile_cap`` splats, and
+    here both run in ``ops/gs_stream.blend`` (the CUDA kernels on CUDA
+    tensors), which takes 16x16 tiles.  On the stream branch (``stream_cap``
+    not None, tile_cap a multiple of 128 up to 1152) a tile whose chunks
+    overflow ``stream_cap`` rows (0: 4N plus a chunk a tile) renders empty,
+    as in JAX; ``chunk`` decides, as in JAX, which tile_caps are accepted.
+    ``use_pallas_blend=False`` is JAX's XLA scan in chunks of ``chunk``
+    (``_blend_scan``), for any tile size."""
+    if use_pallas_blend is None:
+        use_pallas_blend = tile == 16
+    if use_pallas_blend and tile != 16:
+        raise NotImplementedError(f"tile={tile}: the blend kernels take 16x16 tiles "
+                                  f"(use_pallas_blend=False blends any tile)")
     if cam.height % tile or cam.width % tile:
         raise ValueError(f"image {cam.height}x{cam.width} is not a multiple of {tile}")
-    slot_table_chunk(tile_cap, chunk)
+    if use_pallas_blend:
+        slot_table_chunk(tile_cap, chunk)
+    elif tile_cap % chunk:
+        raise ValueError(f"tile_cap={tile_cap} must be a multiple of chunk={chunk}")
+    stream = on_stream_branch(tile, tile_cap, stream_cap, use_pallas_blend)
     bins = bin_tiles(params, viewmat, cam, scaling_modifier, tile, tile_cap, max_tiles_side,
-                     mean2d_offset)
+                     mean2d_offset, stream_cap if stream else None)
+    if not use_pallas_blend:
+        img, trans = _blend_scan(bins, tile, tile_cap, chunk, float(bg_color))
+        return _tiles_to_image(img, bins.tx_n, tile), _tiles_to_image(1.0 - trans, bins.tx_n,
+                                                                      tile)
     img, trans = gs_stream.blend(bins.feat, bins.idx, bins.starts, bins.counts,
                                  bins.tx_n, float(bg_color))
     return img, 1.0 - trans

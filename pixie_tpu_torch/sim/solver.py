@@ -108,6 +108,21 @@ def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     return state
 
 
+# substeps between two cell sorts of the fused frame's particles: their
+# runs of same-cell lanes shorten as they drift from the order of the last
+# sort (on chip_smoke.py's 100k-particle state, NVIDIA H100 80GB HBM3, the
+# mean run length of a kept order fell from 5.13 at substep 1 to 4.40 at
+# 100 and 2.24 at 399; PERF.md)
+RESORT_EVERY = 100
+
+
+def permute_state(state: MPMState, idx: torch.Tensor) -> MPMState:
+    """Every per-particle array of ``state`` taken at ``idx`` (on the
+    array's own device)."""
+    fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    return state.replace(**{k: t[idx.to(t.device)] for k, t in fields.items()})
+
+
 def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
                             n_substeps: int) -> MPMState:
     """A frame of n_substeps with the substep boundary rotated
@@ -115,21 +130,38 @@ def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     substep s < S-1 the grid stage at t_s and one fused G2P(s) -> stress(s+1)
     -> P2G(s+1), then the grid stage at t_{S-1} and G2P.  The same operations
     as ``simulate_substeps`` for a frame without particle BCs, which the
-    caller must drop (they would apply between advect and stress)."""
+    caller must drop (they would apply between advect and stress).
+
+    On the card the frame runs on the state sorted by cell (the prologue
+    P2G's order, renewed every RESORT_EVERY substeps), so the fused kernel's
+    splat sums long runs of same-cell lanes; the returned state is back in
+    the caller's order.  On the CPU the state keeps its order and is written
+    in place."""
     assert not any(isinstance(b, bc_mod.PARTICLE_BC_TYPES) for b in bcs), \
         "the fused frame takes no particle BCs (use simulate_substeps)"
     time0, dt = np.float32(time0), np.float32(dt)
     node_x = node_positions(cfg, state.device) if any(
         isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
     state = compute_stress_from_F_trial(state, cfg, dt)
-    grid = p2g(state, cfg, dt)
     active = state.selection == 0
+    grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
+                               state.vol, active, cfg, dt, return_order=True)
+    if order is not None:
+        state, active = permute_state(state, order), active[order]
     for step in range(n_substeps - 1):
         t = np.float32(time0 + np.float32(step) * dt)
         grid_v = grid_update(grid, cfg, dt, t, bcs, node_x)
+        if order is not None and step and step % RESORT_EVERY == 0:
+            again = transfer.cell_order(state.x, active, cfg)
+            state, active, order = permute_state(state, again), active[again], order[again]
         grid = fs.fused_substep(state, grid_v, cfg, dt, active)
     t = np.float32(time0 + np.float32(n_substeps - 1) * dt)
-    return g2p(state, grid_update(grid, cfg, dt, t, bcs, node_x), cfg, dt)
+    state = g2p(state, grid_update(grid, cfg, dt, t, bcs, node_x), cfg, dt)
+    if order is not None:
+        back = torch.empty_like(order)
+        back[order] = torch.arange(order.shape[0], device=order.device)
+        state = permute_state(state, back)
+    return state
 
 
 def _unpack_cov(c):

@@ -246,6 +246,85 @@ def test_blend_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         gs_stream.blend(*args, 7)
 
 
+def _blend_modes(bins, dev, bg=0.3, keep_state=True):
+    """The shipped forward kernel and its ablation modes on the same inputs:
+    {mode: (img, trans, state)}."""
+    args = [t.to(dev) for t in (bins.feat, bins.idx, bins.starts, bins.counts)]
+    return {m: gs_stream.blend_forward_variant(m, *args, bins.tx_n, bg, keep_state)
+            for m in ("shipped", "nolists", "previous")}
+
+
+@pytest.mark.parametrize("case", ["random", "tile_cap_truncated", "underflow", "tile_cap_1024"])
+@pytest.mark.parametrize("keep_state", [True, False])
+def test_blend_kernel_bitwise_equal_to_previous_schedule(cuda_device, case, keep_state):
+    """The redesigned forward (packed staging, per-warp entry lists, exact
+    early exit, half-tile blocks) gives the previous schedule's img, T and
+    state bit for bit: the same hits, the same float products, in the same
+    order."""
+    bins = {"random": lambda: _splat_bins(tile_cap=512),
+            "tile_cap_truncated": lambda: _splat_bins(tile_cap=128),
+            "underflow": _underflow_bins,
+            "tile_cap_1024": lambda: _splat_bins(n=20000, tile_cap=1024)}[case]()
+    if case == "tile_cap_1024":
+        assert int(bins.counts.max()) == 1024             # a tile at tile_cap
+    out = _blend_modes(bins, cuda_device, keep_state=keep_state)
+    prev = out["previous"]
+    for mode in ("shipped", "nolists"):
+        for k, (g, w) in enumerate(zip(out[mode], prev)):
+            assert (g is None and w is None) or torch.equal(g, w), (mode, k)
+    if case == "underflow":
+        assert float(prev[1].min()) == 0.0                 # the early exit had work to skip
+
+
+def test_blend_kernel_all_opaque_tile_and_a_full_tile(cuda_device):
+    """One tile under 300 opaque splats (T reaches exactly 0 at every pixel
+    after ~25: the block stops early) and one at tile_cap 1024 of faint
+    ones: both against the plain version (atol 1e-4) and bitwise against
+    the previous schedule."""
+    rng = np.random.default_rng(4)
+    n_opaque, n_faint = 300, 1024
+    feat = np.zeros((n_opaque + n_faint, 9), np.float32)
+    feat[:n_opaque, 0:2] = rng.uniform(6.0, 10.0, (n_opaque, 2))          # tile 0, centred
+    feat[:n_opaque, 2:5] = [1e-3, 0.0, 1e-3]                               # wide: covers it
+    feat[:n_opaque, 8] = 0.999
+    feat[n_opaque:, 0] = rng.uniform(16.0, 32.0, n_faint)                  # tile 1
+    feat[n_opaque:, 1] = rng.uniform(0.0, 16.0, n_faint)
+    feat[n_opaque:, 2:5] = [0.05, 0.01, 0.08]
+    feat[n_opaque:, 8] = rng.uniform(0.004, 0.05, n_faint)
+    feat[:, 5:8] = rng.uniform(0.0, 1.0, (n_opaque + n_faint, 3))
+    idx = torch.arange(n_opaque + n_faint, dtype=torch.int32)
+    starts = torch.tensor([0, n_opaque], dtype=torch.int32)
+    counts = torch.tensor([n_opaque, n_faint], dtype=torch.int32)
+    bins = R.TileBins(feat=torch.as_tensor(feat), idx=idx, starts=starts, counts=counts,
+                      raw=counts, tx_n=2)
+    (img, trans), (want_img, want_trans) = _blend_both(bins, cuda_device)
+    np.testing.assert_allclose(to_np(img), to_np(want_img), atol=1e-4)
+    np.testing.assert_allclose(to_np(trans), to_np(want_trans), atol=1e-4)
+    assert float(trans[:, :16].max()) == 0.0 and float(trans[:, 16:].min()) < 0.5
+    out = _blend_modes(bins, cuda_device)
+    for k in range(3):
+        assert torch.equal(out["shipped"][k], out["previous"][k]), k
+
+
+def test_blend_kernel_nan_opacity_and_conic(cuda_device):
+    """A NaN opacity or a NaN conic fails the gate, as in the plain version:
+    the image matches it (atol 1e-4) and the previous schedule bit for bit."""
+    bins = _splat_bins(n=600, tile_cap=512)
+    feat = bins.feat.clone()
+    busy = torch.argsort(bins.counts, descending=True)[:2]
+    feat[int(bins.idx[bins.starts[int(busy[0])]]), 8] = float("nan")
+    feat[int(bins.idx[bins.starts[int(busy[1])] + 1]), 3] = float("nan")
+    nan_bins = R.TileBins(feat=feat, idx=bins.idx, starts=bins.starts, counts=bins.counts,
+                          raw=bins.raw, tx_n=bins.tx_n)
+    (img, trans), (want_img, want_trans) = _blend_both(nan_bins, cuda_device)
+    assert bool(torch.isfinite(img).all())
+    np.testing.assert_allclose(to_np(img), to_np(want_img), atol=1e-4)
+    np.testing.assert_allclose(to_np(trans), to_np(want_trans), atol=1e-4)
+    out = _blend_modes(nan_bins, cuda_device)
+    for k in range(3):
+        assert torch.equal(out["shipped"][k], out["previous"][k]), k
+
+
 def _cotangents(bins, seed=0):
     h, w = bins.starts.shape[0] // bins.tx_n * 16, bins.tx_n * 16
     rng = np.random.default_rng(seed)
@@ -452,6 +531,68 @@ def test_fused_frame_on_cuda_launches_once_a_substep(cuda_device):
     after = (transfer.P2G_LAUNCHES, transfer.G2P_LAUNCHES, fs.FUSED_LAUNCHES)
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 7)
     np.testing.assert_allclose(to_np(got.x), to_np(ref.x), rtol=0, atol=1e-5)
+
+
+def _fused_order(st, cfg, order):
+    """The state in B6's three orders: as given, sorted by cell, and sorted
+    by cell before a drift of up to 0.8 cell on each axis."""
+    from pixie_tpu_torch.sim.solver import permute_state
+
+    if order == "given":
+        return st
+    st = permute_state(st, transfer.cell_order(st.x, st.selection == 0, cfg))
+    if order == "drifted":
+        rng = np.random.default_rng(3)
+        st = st.replace(x=st.x + torch.as_tensor(
+            (rng.uniform(-0.8, 0.8, (st.n_particles, 3)) * cfg.dx).astype(np.float32)))
+    return st
+
+
+@pytest.mark.parametrize("schedule", ["run_sums", "atomics"])
+@pytest.mark.parametrize("order", ["given", "cell_sorted", "drifted"])
+def test_fused_substep_kernel_in_three_orders(cuda_device, order, schedule):
+    """B6 on particles in the given order, sorted by cell and in a cell order
+    gone stale, and the previous (108-atomic) splat in the same orders:
+    grid and particle fields by B6's criterion against the plain version;
+    the substep without its splat writes the same particle fields."""
+    st, cfg, grid_v = _fused_case((0, 1, 2, 3, 5, 6), True)
+    st = _fused_order(st, cfg, order)
+    want = _to(st, "cpu", fs.UPDATED_FIELDS)
+    grid_want = fs.fused_substep_plain(want, grid_v, cfg, DT, want.selection == 0)
+    fields = fs.UPDATED_FIELDS + ("mass", "vol", "material", "bulk", "selection")
+    got = _to(st, cuda_device, fields)
+    before = fs.FUSED_LAUNCHES
+    if schedule == "run_sums":
+        grid_got = fs.fused_substep(got, grid_v.to(cuda_device), cfg, DT, got.selection == 0)
+        assert fs.FUSED_LAUNCHES == before + 1
+    else:
+        grid_got = fs.fused_substep_variant(schedule, got, grid_v.to(cuda_device), cfg, DT,
+                                            got.selection == 0)
+        assert fs.FUSED_LAUNCHES == before
+    _assert_fused_close(got, grid_got, want, grid_want)
+    bare = _to(st, cuda_device, fields)
+    assert fs.fused_substep_variant("nosplat", bare, grid_v.to(cuda_device), cfg, DT,
+                                    bare.selection == 0) is None
+    for k in fs.UPDATED_FIELDS:
+        assert torch.equal(getattr(bare, k), getattr(got, k)), k
+
+
+def test_fused_frame_on_cuda_resorts_its_order(cuda_device, monkeypatch):
+    """A fused frame on CUDA runs on its state sorted by cell, renews the
+    order every RESORT_EVERY substeps, and returns the state in the
+    caller's order within 1e-5 of the unfused frame."""
+    from pixie_tpu_torch.sim import solver as S
+
+    st, cfg, _ = _fused_case((0, 1, 2, 3, 5, 6), True)
+    fields = fs.UPDATED_FIELDS + ("mass", "vol", "material", "bulk", "selection")
+    sorts, real = [], transfer.cell_order
+    monkeypatch.setattr(transfer, "cell_order", lambda *a: sorts.append(1) or real(*a))
+    monkeypatch.setattr(S, "RESORT_EVERY", 3)
+    ref = S.simulate_substeps(_to(st, cuda_device, fields), cfg, (), 0.0, DT, 8)
+    got = S.simulate_substeps_fused(_to(st, cuda_device, fields), cfg, (), 0.0, DT, 8)
+    assert len(sorts) == 2
+    np.testing.assert_allclose(to_np(got.x), to_np(ref.x), rtol=0, atol=1e-5)
+    assert torch.equal(got.material, ref.material) and torch.equal(got.selection, ref.selection)
 
 
 def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):

@@ -287,3 +287,133 @@ def test_pipeline_fused_rollout_matches_jax(tree_object, monkeypatch):
         for k in "xyz":
             np.testing.assert_array_equal(got[k], same[k])
             np.testing.assert_allclose(got[k], want[k], atol=2e-5, err_msg=name)
+
+
+# -- the CUDA kernel's splat through a kept cell order, emulated on the CPU ------
+
+def _run_sum_splat(x, v, C, stress, mass, vol, active, perm, cfg, dt):
+    """csrc/fused_substep.cu's splat in plain PyTorch: lane q of each warp of
+    32 takes particle perm[q]; a lane is live if its particle is active, its
+    position finite and its stencil reaches the grid; each run of adjacent
+    live lanes with one base cell sums its 27 nodes' values, added into the
+    grid at the nodes of the run's last lane where they are in the grid.
+    Returns the grid and the number of (warp, cell) pairs split over more
+    than one run."""
+    from pixie_tpu_torch.ops import transfer
+
+    g, n = cfg.n_grid, x.shape[0]
+    vals, _ = transfer.p2g_contributions(x, v, C, stress, mass, vol, active, cfg, dt)
+    base, *_ = transfer._spline_weights(x, cfg.inv_dx)
+    node = base[None] + torch.as_tensor(transfer._OFFSETS)[:, None, :]       # (27, N, 3)
+    in_grid = ((node >= 0) & (node < g)).all(-1)
+    live = active & torch.isfinite(x).all(1) & ((base >= -2) & (base <= g - 1)).all(1)
+    label = ((base[:, 0] + 2) * (g + 2) + base[:, 1] + 2) * (g + 2) + base[:, 2] + 2
+    grid, split = torch.zeros((g ** 3, 4)), 0
+    for w0 in range(0, n, 32):
+        lanes = perm[w0:w0 + 32]
+        lab = torch.where(live[lanes], label[lanes], -1 - torch.arange(len(lanes)))
+        run = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool), lab[1:] != lab[:-1]]), 0)
+        cells = lab[live[lanes]]
+        split += len(torch.unique_consecutive(cells)) - len(torch.unique(cells))
+        for r in torch.unique(run[live[lanes]]).tolist():
+            members = lanes[run == r]
+            last = members[-1]
+            nd, ok = node[:, last], in_grid[:, last]
+            flat = (nd[:, 0] * g + nd[:, 1]) * g + nd[:, 2]
+            grid.index_add_(0, flat[ok], vals[:, members].sum(1)[ok])
+    return grid.reshape(g, g, g, 4), split
+
+
+@pytest.mark.parametrize("order", ["given", "cell_sorted", "stale"])
+def test_run_sum_splat_through_a_kept_order_matches_plain(order):
+    """The fused kernel's run-summed splat, emulated on the CPU, gives
+    p2g_plain's grid to 1e-5 of its largest value in any lane order: the
+    particles' own order, sorted by cell (transfer.cell_order), and the
+    order of a sort made before the particles drifted (up to 0.8 of a cell
+    on each axis, as over many substeps), which splits cells over several
+    runs of a warp.  Particles on the grid's faces, off the grid and
+    inactive are in the scene.  The mean run length reads as the kernel
+    would form them: longest sorted, shortened by the drift."""
+    from pixie_tpu_torch.ops import transfer
+
+    d = _mixed_inputs(n=3000, seed=7)
+    cfg = MPMConfig(**{**_cfg_kw(True), "n_grid": 40})
+    rng = np.random.default_rng(8)
+    x = d["x"].copy()
+    x[:50] = rng.uniform(0.0, cfg.dx, (50, 3))          # stencils over the low faces
+    x[50:55] = [-0.5, 1.0, 1.0]                          # no node in the grid
+    st = _torch_state({**d, "x": x})
+    active = st.selection == 0
+    st = st.replace(stress=torch.as_tensor((1e3 * rng.normal(size=(3000, 3, 3))).astype(
+        np.float32)), C=torch.as_tensor((0.1 * rng.normal(size=(3000, 3, 3))).astype(np.float32)))
+    perm = {"given": torch.arange(3000), "cell_sorted": transfer.cell_order(st.x, active, cfg),
+            "stale": transfer.cell_order(st.x, active, cfg)}[order]
+    if order == "stale":
+        drift = rng.uniform(-0.8, 0.8, (3000, 3)) * cfg.dx
+        st = st.replace(x=st.x + torch.as_tensor(drift.astype(np.float32)))
+    args = (st.x, st.v, st.C, st.stress, st.mass, st.vol, active)
+    want = transfer.p2g_plain(*args, cfg, DT)
+    got, split = _run_sum_splat(*args, perm, cfg, DT)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=0, atol=1e-5 * scale)
+    runs = {o: fs.mean_run_length(st.x[p], active[p], cfg)
+            for o, p in (("given", torch.arange(3000)),
+                         ("sorted", transfer.cell_order(st.x, active, cfg)), ("this", perm))}
+    assert runs["given"] < 1.5 < runs["sorted"]
+    if order == "stale":
+        assert split > 0 and runs["given"] < runs["this"] < runs["sorted"]
+    elif order == "cell_sorted":
+        assert split == 0 and runs["this"] == runs["sorted"]
+
+
+def test_fused_frame_runs_on_the_state_in_cell_order(monkeypatch):
+    """Where P2G returns its cell order (on the card), the fused frame runs
+    its substeps on the state permuted into that order, permutes it again
+    every RESORT_EVERY substeps by a fresh cell order and hands the state
+    back in the caller's order: every field where the frame in the
+    caller's order puts it (the sums of P2G run in another order: atol
+    1e-6 of the field's largest value, the stress to the module's ULP
+    floor), the untouched ones exactly.  On the CPU P2G returns no order and
+    the frame runs in place, in the caller's order."""
+    from pixie_tpu_torch.ops import transfer
+
+    d = _mixed_inputs(n=200, seed=2)
+    cfg = MPMConfig(**_cfg_kw(False))
+    rng = np.random.default_rng(0)
+    first, again = (torch.as_tensor(rng.permutation(200)) for _ in range(2))
+    seen, sorts = [], []
+    real_p2g, real_fused = transfer.p2g, fs.fused_substep
+
+    def p2g(*a, return_order=False, **k):
+        grid = real_p2g(*a, **k)
+        return (grid, first) if return_order else grid
+
+    def cell_order(x, active, c):
+        sorts.append(x.clone())
+        return again
+
+    def fused(state, grid_v, c, dt, active):
+        seen.append(state.x.clone())
+        return real_fused(state, grid_v, c, dt, active)
+
+    monkeypatch.setattr(fs, "fused_substep", fused)
+    want = tsolver.simulate_substeps_fused(_torch_state(d), cfg, (), 0.0, DT, 8)
+    assert len(seen) == 7 and not sorts
+    monkeypatch.setattr(transfer, "p2g", p2g)
+    monkeypatch.setattr(transfer, "cell_order", cell_order)
+    monkeypatch.setattr(tsolver, "RESORT_EVERY", 3)
+    seen.clear()
+    got = tsolver.simulate_substeps_fused(_torch_state(d), cfg, (), 0.0, DT, 8)
+    assert len(seen) == 7 and len(sorts) == 2                 # renewed at steps 3 and 6
+    assert torch.equal(seen[0], torch.as_tensor(d["x"])[first])
+    assert torch.equal(seen[3], sorts[0][again])
+    for k in FIELDS:
+        if k != "stress":
+            np.testing.assert_allclose(to_np(getattr(got, k)), to_np(getattr(want, k)), rtol=0,
+                                       atol=1e-6 * max(float(getattr(want, k).abs().max()), 1.0),
+                                       err_msg=k)
+    diff = np.abs(to_np(got.stress) - to_np(want.stress))
+    floor = 6 * E * 1.2e-7
+    assert (diff <= floor).mean() > 0.9 and diff.max() < 100 * floor
+    for k in ("material", "selection", "mass", "vol", "init_cov"):
+        assert torch.equal(getattr(got, k), getattr(_torch_state(d), k)), k

@@ -21,8 +21,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
-from torch_parity import to_np
+from torch_parity import splat_scene, to_np
 
 jnp = pytest.importorskip("jax.numpy")
 
@@ -230,11 +232,105 @@ def test_blend_plain_empty_and_transparent_tiles():
     np.testing.assert_array_equal(to_np(img[:, 16:]), 0.5)
 
 
+def _plain_gate(feat, px, py):
+    """gs_stream's gate per (gaussian, pixel): alpha >= 1/255, op by op."""
+    from pixie_tpu_torch.ops import gs_stream
+
+    dx, dy = px - feat[:, 0], py - feat[:, 1]
+    power = -0.5 * (feat[:, 2] * dx * dx + feat[:, 4] * dy * dy) - feat[:, 3] * dx * dy
+    alpha = torch.clamp(feat[:, 8] * torch.exp(torch.clamp(power, max=0.0)),
+                        max=gs_stream.ALPHA_MAX)
+    return alpha >= gs_stream.ALPHA_MIN
+
+
+def _inside(box, px, py):
+    return (box[:, 0] <= px) & (px <= box[:, 1]) & (box[:, 2] <= py) & (py <= box[:, 3])
+
+
+def _box_case(sx, sy, rho, op, angle, n=256, seed=0):
+    """Gaussians of screen std sx, sy and correlation rho (+0.3 on the
+    covariance's diagonal, as the projection), with conics as _conic makes
+    them, and pixels at 0.9 to 1.1 of the exact 1/255 ellipse's radius."""
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    rng = np.random.default_rng(seed)
+    cxy = rho * sx * sy
+    cov = torch.tensor([[sx * sx + 0.3, cxy, sy * sy + 0.3]] * n, dtype=torch.float32)
+    conic, _ = TR._conic(cov)
+    mx = torch.as_tensor(rng.uniform(0.0, 800.0, n).astype(np.float32))
+    my = torch.as_tensor(rng.uniform(0.0, 800.0, n).astype(np.float32))
+    feat = torch.cat([mx[:, None], my[:, None], conic, torch.full((n, 3), 0.5),
+                      torch.full((n, 1), op)], 1)
+    th = angle + rng.uniform(0.0, 2.0 * np.pi, n)
+    d = np.stack([np.cos(th), np.sin(th)], 1)
+    c = conic.double().numpy()
+    q = c[:, 0] * d[:, 0] ** 2 + 2 * c[:, 1] * d[:, 0] * d[:, 1] + c[:, 2] * d[:, 1] ** 2
+    rad = np.sqrt(2.0 * max(np.log(255.0 * op), 0.0) / q) * rng.uniform(0.9, 1.1, n)
+    px = torch.as_tensor((mx.double().numpy() + rad * d[:, 0]).astype(np.float32))
+    py = torch.as_tensor((my.double().numpy() + rad * d[:, 1]).astype(np.float32))
+    return feat, px, py
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(sx=st.floats(0.05, 400.0), sy=st.floats(0.05, 400.0), rho=st.floats(-0.9999, 0.9999),
+       op=st.one_of(st.floats(1e-4, 1.0), st.floats(1.0, 50.0)), angle=st.floats(0.0, 6.3),
+       seed=st.integers(0, 2**16))
+def test_blend_box_never_drops_a_pair_the_gate_keeps(sx, sy, rho, op, angle, seed):
+    """The box of csrc/gs_stream.cu:blend_box (its plain version), from which
+    each warp of the blend kernel builds its entry list, holds every pixel at
+    which the plain gate alpha >= 1/255 passes: pixels drawn around the
+    exact ellipse of the gate, for any screen std, any correlation up to
+    0.9999 (where the box becomes the whole plane) and opacities from below
+    1/255 (an empty box: the gate never passes) to 50."""
+    from pixie_tpu_torch.ops import gs_stream
+
+    feat, px, py = _box_case(sx, sy, rho, op, angle, seed=seed)
+    keep = _plain_gate(feat, px, py)
+    box = gs_stream.blend_box_plain(feat)
+    assert bool((_inside(box, px, py) | ~keep).all())
+    if op < gs_stream.ALPHA_MIN:
+        assert not bool(keep.any()) and bool((box[:, 0] > box[:, 1]).all())
+
+
+def test_blend_box_holds_every_kept_pair_of_a_scene():
+    """Every (tile entry, pixel) pair of a binned scene whose plain gate
+    passes lies in the entry's box; the boxes are tight enough to drop most
+    (warp rows, entry) pairs, and degenerate conics (non-positive, NaN, a
+    correlation of 1) get the whole plane."""
+    from pixie_tpu_torch.ops import gs_stream
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    p, vm = splat_scene(400, seed=6)
+    bins = TR.bin_tiles({k: torch.as_tensor(v) for k, v in p.items()}, torch.as_tensor(vm),
+                        TR.Camera(64, 64, 64.0, 64.0, 32.0, 32.0), tile_cap=256)
+    box = gs_stream.blend_box_plain(bins.feat)
+    px, py = gs_stream._pixel_centres(bins.starts.shape[0], bins.tx_n, "cpu")
+    kept = met = pairs = 0
+    for t in range(bins.starts.shape[0]):
+        g = bins.idx[int(bins.starts[t]):int(bins.starts[t]) + int(bins.counts[t])].long()
+        f, b = bins.feat[g][:, None], box[g][:, None]
+        x, y = px[t][None, :], py[t][None, :]
+        keep = _plain_gate(f.expand(-1, 256, -1).reshape(-1, 9), x.expand(len(g), -1).reshape(-1),
+                           y.expand(len(g), -1).reshape(-1)).reshape(len(g), 256)
+        inside = (b[..., 0] <= x) & (x <= b[..., 1]) & (b[..., 2] <= y) & (y <= b[..., 3])
+        assert bool((inside | ~keep).all())
+        # a warp's pixels: 8 x 4 blocks of the 16 x 16 tile
+        rows = inside.reshape(len(g), 4, 4, 2, 8).any(-1).any(-2).reshape(len(g), 8)
+        kept, met, pairs = kept + int(keep.sum()), met + int(rows.sum()), pairs + rows.numel()
+    assert kept > 0 and met < 0.8 * pairs
+    odd = torch.tensor([[5.0, 5.0, -1.0, 0.0, 1.0, 0, 0, 0, 0.5],
+                        [5.0, 5.0, 1.0, float("nan"), 1.0, 0, 0, 0, 0.5],
+                        [5.0, 5.0, 1.0, 1.0, 1.0, 0, 0, 0, 0.5]])
+    assert torch.equal(gs_stream.blend_box_plain(odd).abs(), torch.full((3, 4), float("inf")))
+
+
 def test_rasterize_tiled_raises_off_the_stream_branch():
     """Off the stream branch: tile_cap 1280 is JAX's slot-table branch (B5)
     and now runs through the same blend, matching JAX's image (atol 2e-5);
     tile_cap 100 (not a multiple of chunk) raises where JAX raises; tile 8
-    (JAX's XLA-scan branch, not a kernel) still raises."""
+    with the blend kernels asked for raises (they take 16x16 tiles; JAX's
+    B5 call would misshape them), while tile 8 by default runs JAX's XLA
+    scan (test_rasterize_tiled_scan_branch_matches_jax)."""
     from pixie_tpu.recon import rasterizer as JR
     from pixie_tpu_torch.recon import rasterizer as TR
 
@@ -257,7 +353,86 @@ def test_rasterize_tiled_raises_off_the_stream_branch():
     with pytest.raises(ValueError, match="carry-grown"):    # JAX's ValueError (:518-522)
         TR.rasterize_tiled(tp, torch.as_tensor(vm), small, tile_cap=1408)
     with pytest.raises(NotImplementedError):
-        TR.rasterize_tiled(tp, torch.as_tensor(vm), small, tile=8)
+        TR.rasterize_tiled(tp, torch.as_tensor(vm), small, tile=8, use_pallas_blend=True)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        TR.rasterize_tiled(tp, torch.as_tensor(vm), small, tile=8, tile_cap=100)
+
+
+SCAN_CASES = {"tile_8": dict(tile=8), "tile_16_no_kernel": dict(use_pallas_blend=False),
+              "tile_8_chunk_64": dict(tile=8, tile_cap=256, chunk=64, max_tiles_side=4)}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_rasterize_tiled_scan_branch_matches_jax(case):
+    """JAX's XLA-scan branch (tile != 16, or use_pallas_blend=False): the
+    port's plain scan against JAX's, image and alpha to 2e-5, and the
+    gradients of every param key and mean2d_offset against jax.grad (rtol
+    1e-4, atol 1e-5 of the key's largest |grad|, as tests/test_torch_train.py)."""
+    import jax
+
+    from pixie_tpu.recon import rasterizer as JR
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    kw = SCAN_CASES[case]
+    p, vm = splat_scene(300, seed=4)
+    n, cam = 300, (64, 64, 64.0, 64.0, 32.0, 32.0)
+    rng = np.random.default_rng(9)
+    wi = rng.normal(size=(64, 64, 3)).astype(np.float32)
+    wa = rng.normal(size=(64, 64)).astype(np.float32)
+
+    def jloss(jp, off):
+        img, a = JR.rasterize_tiled(jp, jnp.asarray(vm), JR.Camera(*cam), bg_color=0.25,
+                                    mean2d_offset=off, **kw)
+        return jnp.sum(img * wi) + jnp.sum(a * wa), (img, a)
+
+    (_, (want_img, want_a)), (jg, jo) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.zeros((n, 2), jnp.float32))
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in p.items()}
+    to = torch.zeros((n, 2), requires_grad=True)
+    img, a = TR.rasterize_tiled(tp, torch.as_tensor(vm), TR.Camera(*cam), bg_color=0.25,
+                                mean2d_offset=to, **kw)
+    np.testing.assert_allclose(to_np(img), np.asarray(want_img), atol=2e-5)
+    np.testing.assert_allclose(to_np(a), np.asarray(want_a), atol=2e-5)
+    assert float(to_np(a).max()) > 0.5
+    (torch.sum(img * torch.as_tensor(wi)) + torch.sum(a * torch.as_tensor(wa))).backward()
+    want = {**{k: np.asarray(v) for k, v in jg.items()}, "mean2d_offset": np.asarray(jo)}
+    got = {**{k: to_np(v.grad) for k, v in tp.items()}, "mean2d_offset": to_np(to.grad)}
+    for k, w in want.items():
+        scale = float(np.abs(w).max())
+        assert scale > 0.0, k
+        np.testing.assert_allclose(got[k], w, rtol=1e-4, atol=1e-5 * scale, err_msg=k)
+
+
+def test_stream_cap_blanks_the_same_tiles_as_jax():
+    """An explicit stream_cap of 6 chunks: JAX's stream renders every tile
+    past the budget empty, and so does the port (the tiles' counts are 0):
+    the same tiles show the background exactly in both, and the images agree
+    to 2e-5; without the budget the port renders them."""
+    from pixie_tpu.recon import rasterizer as JR
+    from pixie_tpu_torch.recon import rasterizer as TR
+
+    p, vm = _raster_scene(n=300, seed=0)
+    jp, tp = _both(p)
+    cam, kw = (64, 64, 64.0, 64.0, 32.0, 32.0), dict(tile_cap=256, stream_cap=6 * 128)
+    want_img, want_a = JR.rasterize_tiled(jp, jnp.asarray(vm), JR.Camera(*cam), bg_color=0.25,
+                                          **kw)
+    got_img, got_a = TR.rasterize_tiled(tp, torch.as_tensor(vm), TR.Camera(*cam),
+                                        bg_color=0.25, **kw)
+    np.testing.assert_allclose(to_np(got_img), np.asarray(want_img), atol=2e-5)
+    np.testing.assert_allclose(to_np(got_a), np.asarray(want_a), atol=2e-5)
+    bins = TR.bin_tiles(tp, torch.as_tensor(vm), TR.Camera(*cam), tile_cap=256,
+                        stream_cap=6 * 128)
+    assert TR.jax_stream_overflows(bins)
+    blank = to_np(((bins.counts == 0) & (bins.raw > 0)).reshape(4, 4))
+    assert 0 < blank.sum() < 16
+    tiles_a = [np.asarray(x).reshape(4, 16, 4, 16).transpose(0, 2, 1, 3) for x in (want_a, got_a)]
+    for t in tiles_a:
+        assert float(np.abs(t[blank]).max()) == 0.0 and float(t[~blank].max()) > 0.1
+    full, _ = TR.rasterize_tiled(tp, torch.as_tensor(vm), TR.Camera(*cam), bg_color=0.25,
+                                 tile_cap=256, stream_cap=None)
+    assert float((full - got_img).abs().max()) > 0.1
+    unbudgeted = TR.bin_tiles(tp, torch.as_tensor(vm), TR.Camera(*cam), tile_cap=256)
+    assert not TR.jax_stream_overflows(unbudgeted)
 
 
 # -- render_sim and the camera ---------------------------------------------------
