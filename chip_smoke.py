@@ -14,31 +14,33 @@ Phases (any failure exits non-zero):
                 version in three cases (the slice's state: 100k particles,
                 n_grid 50; the same sorted by cell; P1's 100k particles at
                 ~45 a cell), each with its device time, the share of the
-                sort and the unbinned splat's time; G2P vs its plain version
-                at the slice's shapes; the fused substep
+                sort and the unbinned splat's time; G2P (B2) vs its plain
+                version on the slice's state in three orders (as given,
+                sorted by cell as the unfused frame keeps it, and a cell
+                order left stale by 100 unfused substeps), each with its
+                mean run length, the time around the call, its device and
+                host time and its schedules; the fused substep
                 (B6) vs its plain version on a mixed-material state at the
                 same shapes (ids 0, 1, 2, 3, 5, 6, yielding, damaged,
                 inactive and off-face particles) in three particle orders
                 (as given, sorted by cell, sorted then drifted by 100 fused
-                substeps), each with its mean run length and timed against
-                the previous splat (108 atomics a particle) and without the
-                splat; the mean run length of a kept cell order at substeps
-                1, 100 and 399 of a fused frame; a torch.profiler count of
-                launches, wall and device time a substep, unfused (binned
-                and unbinned P2G in turns) and fused (B6 and the previous
-                fused frame in turns); the tile blend (B3, tile_cap 512)
+                substeps), each with its mean run length and timed without
+                its splat; the mean run length of a kept cell order at
+                substeps 1, 100 and 399 of a fused frame; a torch.profiler
+                count of launches, wall and device time a substep, unfused
+                (the frame's state in a cell order and in the caller's, in
+                turns) and fused; the tile blend (B3, tile_cap 512)
                 and its backward (B4, tile_cap 1024, a seeded cotangent)
                 vs their plain versions at the render's shapes (~100k
                 seeded gaussians at 800x800, the tree config's camera),
                 with timings and B4's peak device memory, and B4's
                 ablation: without its per-entry reduction, and with a first
-                walk in place of the forward's state; B3 at both tile_caps, with and without
-                that state, against its previous schedule (bitwise) and its
-                ablations (no per-warp lists; the gate alone), with the
-                share of (warp, entry) pairs its lists keep and its power
-                bit-equal to the plain order of operations; the unfused
-                substep with the binned P2G and with the unbinned splat,
-                in turns
+                walk in place of the forward's state; B3 at both tile_caps,
+                with and without that state, bitwise against its ablation
+                without per-warp lists, timed with its ablations (no lists;
+                the gate alone), with the share of (warp, entry) pairs its
+                lists keep and its power bit-equal to the plain order of
+                operations
   4. probes   — the probe entry points pixie_tpu_torch.scripts.
                 probe_kernel_ablation (P1: four P2G variants x two particle
                 orders, 100k particles, n_grid 50) and probe_vmem_gather (P2:
@@ -67,8 +69,10 @@ Phases (any failure exits non-zero):
                 (c) the fused path (fused=True, PIXIE_FUSED=1's solver):
                     GS mode 3 frames and point-cloud mode 2 frames; frame 0
                     holds the impulse and runs unfused, every later frame
-                    1 P2G + 399 fused substeps + 1 G2P; fused and unfused
-                    GS frames agree in x after frame 1;
+                    1 P2G + 399 fused substeps + 1 G2P; the GS run's frame
+                    0 keeps the caller's order, and x after it agrees with
+                    (b)'s frame 0 in a cell order; fused and unfused GS
+                    frames agree in x after frame 1;
                 (d) particle filling: the outer half of the capture's
                     seeded model under a copy of
                     config/objaverse/custom_sand_config.json cut to 1 frame x
@@ -87,6 +91,7 @@ of the pipeline paths, as those launch no probe kernel.  The last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -142,6 +147,12 @@ FUSED_RTOL, ULP_FLOOR, ULP_SHARE, ULP_MAX = 1e-5, 6 * 1.2e-7, 0.9, 100.0
 # magnitude below a cell; a tenth of a cell would mean particles took other
 # branches or other forces, i.e. a fault.  The mean is held to 1e-3 cell.
 FUSED_DX_MAX, FUSED_DX_MEAN = 0.1, 1e-3
+# an unfused GS frame with its state in a cell order vs the same frame in the
+# caller's order, |dx| in cells: the two differ by the order of P2G's float
+# atomics alone, as two runs of one order do (max 1.85e-4, mean 7.5e-6 cell
+# after the tree config's frame 0; PERF.md): the mean is held to 1e-4 cell,
+# the max, which a few particles set, to 1e-2
+ORDER_DX_MAX, ORDER_DX_MEAN = 1e-2, 1e-4
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, float32
 # operations/s outside the tensor cores
 HBM_BPS, F32_OPS = 3.35e12, 67e12
@@ -359,7 +370,6 @@ def phase_kernels(dev, n_p1: int = 100_000):
 
     from pixie_tpu_torch.ops import transfer
     from pixie_tpu_torch.scripts import probe_kernel_ablation as p1
-    from pixie_tpu_torch.sim.solver import grid_momentum_to_velocity
 
     st, cfg = _slice_state(dev)
     args = (st.x, st.v, st.C, st.stress, st.mass, st.vol, st.selection == 0)
@@ -375,50 +385,124 @@ def phase_kernels(dev, n_p1: int = 100_000):
              "P1 state": _p2g_case(dev, "P1 state", p1.inputs(p1.make_particles(n_p1), "generated",
                                                               p1_cfg, dev), p1_cfg, p1.DT)}
     p2g_err = max(c["max_abs_err"] for c in cases.values())
-    args = (*args, cfg, DT)
-    grid_p = transfer.p2g_plain(*args)
-
-    grid_v = grid_momentum_to_velocity(grid_p, cfg, DT).contiguous()
-    fields = ("x", "v", "C", "F_trial", "cov")
-
-    def fresh():
-        return st.replace(**{k: getattr(st, k).clone() for k in fields})
-
-    out_k = transfer.g2p(fresh(), grid_v, cfg, DT)
-    out_p = transfer.g2p_plain(fresh(), grid_v, cfg, DT)
-    torch.cuda.synchronize()
-    g2p_err = 0.0
-    for k in fields:
-        ref = getattr(out_p, k)
-        err = float((getattr(out_k, k) - ref).abs().max())
-        tol = G2P_RTOL * max(float(ref.abs().max()), 1.0)
-        print(f"g2p {k}: max_abs_err {err:.3e} (tol {tol:.3e})")
-        if not err <= tol:
-            fail(f"g2p kernel disagrees with its plain version on {k}")
-        g2p_err = max(g2p_err, err)
-
-    timings = {
-        "p2g": (cases["phase-3 state"]["ms"], cuda_ms(lambda: transfer.p2g_plain(*args))),
-        "g2p": (cuda_ms(lambda s: transfer.g2p(s, grid_v, cfg, DT), setup=lambda: (fresh(),)),
-                cuda_ms(lambda s: transfer.g2p_plain(s, grid_v, cfg, DT),
-                        setup=lambda: (fresh(),))),
-    }
+    p_ms = cuda_ms(lambda: transfer.p2g_plain(*args, cfg, DT))
+    n, act, g3 = N_PARTICLES, int((st.selection == 0).sum()), N_GRID ** 3
     # bytes: each input read once, each output written once (particles with
     # selection == 0 only; the flags of all)
-    n, act, g3 = N_PARTICLES, int((st.selection == 0).sum()), N_GRID ** 3
+    b = bound(act * (12 + 12 + 36 + 36 + 4 + 4) + n + g3 * 16, act * P2G_OPS)
+    k_ms = cases["phase-3 state"]["ms"]
+    print(f"p2g: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}) (median of 30 CUDA-event timings, {N_PARTICLES} particles, n_grid "
+          f"{N_GRID})")
+    return {"p2g": {"max_abs_err": p2g_err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None,
+                    "cases": cases},
+            "g2p": _g2p_orders(dev, st, cfg)}
+
+
+G2P_STALE = 100   # substeps a kept cell order drifts before B2 reads it
+
+
+def _g2p_orders(dev, st, cfg, reps: int = 30) -> dict:
+    """B2 against g2p_plain on the phase-3 state in three orders: as given
+    (random), sorted by cell (transfer.cell_order, as the unfused frame
+    keeps its state), and sorted by cell, then run G2P_STALE unfused
+    substeps without re-sorting; each with its mean run length of same-cell
+    lanes, the time around the call (CUDA events), its device time (a sleep
+    kernel queued ahead) and its host time a call.  The row of the kernels'
+    JSON line is the cell-sorted state's, the order the unfused frame runs
+    B2 in, with the device time as its ms: around the call, the wrapper's
+    host time (~0.03 ms) is longer than the kernel."""
+    import torch
+
+    from pixie_tpu_torch.ops import fused_substep as fs
+    from pixie_tpu_torch.ops import transfer
+    from pixie_tpu_torch.scripts.timing import time_calls
+    from pixie_tpu_torch.sim.solver import grid_momentum_to_velocity, p2g2p, permute_state
+
+    active = st.selection == 0
+    cell = transfer.cell_order(st.x, active, cfg)
+    stale = permute_state(st, cell)
+    for step in range(G2P_STALE):
+        stale = p2g2p(stale, cfg, (), float(step) * DT, DT)
+    states = {"given": st, "cell-sorted": permute_state(st, cell),
+              f"stale {G2P_STALE} substeps": stale}
+    fields = ("x", "v", "C", "F_trial", "cov")
+    n, act, g3 = N_PARTICLES, int(active.sum()), N_GRID ** 3
     cov = 48 * cfg.update_cov_with_F
-    bounds = {"p2g": bound(act * (12 + 12 + 36 + 36 + 4 + 4) + n + g3 * 16, act * P2G_OPS),
-              "g2p": bound(act * (12 + 36 + 12 + 12 + 36 + 36 + cov) + 4 * n + g3 * 12,
-                           act * (G2P_OPS + COV_OPS * cfg.update_cov_with_F))}
-    rows = {}
-    for name, (k_ms, p_ms) in timings.items():
-        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}) (median of 30 "
-              f"CUDA-event timings, {N_PARTICLES} particles, n_grid {N_GRID})")
-        rows[name] = {"max_abs_err": p2g_err if name == "p2g" else g2p_err, "ms": k_ms,
-                      "plain_ms": p_ms, **bounds[name], "library_ms": None}
-    rows["p2g"]["cases"] = cases
-    return rows
+    # bytes: x, F, cov read and x, v, C, F_trial, cov written for active
+    # particles, the flags of all, the velocity grid once
+    b = bound(act * (12 + 36 + 12 + 12 + 36 + 36 + cov) + 4 * n + g3 * 12,
+              act * (G2P_OPS + COV_OPS * cfg.update_cov_with_F))
+    per_order, err_all = {}, 0.0
+    for label, s0 in states.items():
+        grid_v = grid_momentum_to_velocity(transfer.p2g_plain(
+            s0.x, s0.v, s0.C, s0.stress, s0.mass, s0.vol, s0.selection == 0, cfg, DT),
+            cfg, DT).contiguous()
+
+        def fresh(s0=s0):
+            return s0.replace(**{k: getattr(s0, k).clone() for k in fields})
+
+        out_k = transfer.g2p(fresh(), grid_v, cfg, DT)
+        out_p = transfer.g2p_plain(fresh(), grid_v, cfg, DT)
+        torch.cuda.synchronize()
+        errs = {}
+        for k in fields:
+            ref = getattr(out_p, k)
+            errs[k] = float((getattr(out_k, k) - ref).abs().max())
+            tol = G2P_RTOL * max(float(ref.abs().max()), 1.0)
+            if not errs[k] <= tol:
+                fail(f"g2p kernel disagrees with its plain version on {k} ({label}): "
+                     f"{errs[k]:.3e} > {tol:.3e}")
+        err_all = max(err_all, *errs.values())
+        print(f"g2p ({label}): max_abs_err " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (tol {G2P_RTOL:.0e} of each field's largest |value|)", flush=True)
+
+        def device_ms(fn):
+            return statistics.median(time_calls(fn, [(fresh(),) for _ in range(reps)], dev))
+
+        def host_ms(calls=10):
+            states_ = [fresh() for _ in range(calls + 1)]
+            transfer.g2p(states_[0], grid_v, cfg, DT)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000_000)
+            t0 = time.perf_counter()
+            for s_ in states_[1:]:
+                transfer.g2p(s_, grid_v, cfg, DT)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            return 1e3 * (t1 - t0) / calls
+
+        row = {"run_length": fs.mean_run_length(s0.x, s0.selection == 0, cfg),
+               "around_ms": cuda_ms(lambda s_: transfer.g2p(s_, grid_v, cfg, DT),
+                                    setup=lambda: (fresh(),)),
+               "device_ms": device_ms(lambda s_: transfer.g2p(s_, grid_v, cfg, DT)),
+               "host_ms": host_ms(),
+               "plain_ms": cuda_ms(lambda s_: transfer.g2p_plain(s_, grid_v, cfg, DT),
+                                   setup=lambda: (fresh(),), reps=10)}
+        per_order[label] = row
+        print(f"g2p ({label}): mean run length {row['run_length']:.3f}; around the call "
+              f"{row['around_ms']:.4f} ms (CUDA events), device {row['device_ms']:.4f} ms (median of "
+              f"{reps}, a sleep kernel ahead), host time a call {row['host_ms']:.4f} ms; plain "
+              f"{row['plain_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+              flush=True)
+    for line in _ptxas("transfer"):
+        print(f"transfer ptxas: {line}")
+    c, g = per_order["cell-sorted"], per_order["given"]
+    print(f"g2p: kernel {c['device_ms']:.4f} ms device, {c['around_ms']:.4f} ms around the call on "
+          f"the cell-sorted state (given order {g['device_ms']:.4f}, {g['around_ms']:.4f}), plain "
+          f"{c['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) ({n} particles, "
+          f"n_grid {N_GRID})", flush=True)
+    return {"max_abs_err": err_all, "ms": c["device_ms"], "around_ms": c["around_ms"],
+            "plain_ms": c["plain_ms"], **b, "library_ms": None, "orders": per_order}
+
+
+def _ptxas(name: str) -> list[str]:
+    """The register and spill lines of a library's ptxas report."""
+    from pixie_tpu_torch.ops import build
+
+    log = build.BUILD_LOG.get(name, "(cached build: no ptxas report)")
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "cached" in ln or "Compiling" in ln]
 
 
 FUSED_MATS = (0, 1, 2, 3, 5, 6)
@@ -566,11 +650,10 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
     """B6 against fused_substep_plain on one substep of _fused_state, its
     particles in three orders: as given, sorted by cell, and sorted by cell
     at substep 0 of a fused frame, then drifted by its first 100 substeps;
-    each timed with the previous splat (108 atomics a particle) and without
-    the splat, in the same call; the mean run length over a fused frame."""
+    each timed with and without the splat, in the same call; the mean run
+    length over a fused frame."""
     import torch
 
-    from pixie_tpu_torch.ops import build
     from pixie_tpu_torch.ops import fused_substep as fs
     from pixie_tpu_torch.ops import transfer
     from pixie_tpu_torch.sim.solver import permute_state
@@ -598,24 +681,19 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
         err = max(err, _check_fused(out_k, grid_k, out_p, grid_p, s0.mu, label,
                                     every_branch=s0 is st))
         row = {"run_length": fs.mean_run_length(s0.x, active, cfg)}
-        for sched in ("run_sums", "atomics", "nosplat", "run_sums (again)", "atomics (again)"):
-            name = sched.split()[0]
-            row[sched] = cuda_ms(lambda s, m=name, a=active: fs.fused_substep_variant(
+        for sched in ("run_sums", "nosplat", "run_sums (again)"):
+            row[sched] = cuda_ms(lambda s, m=sched.split()[0], a=active: fs.fused_substep_variant(
                 m, s, grid_v, cfg, DT, a), setup=lambda: (fresh(),))
         per_order[label] = row
         print(f"fused_substep ({label}): mean run length {row['run_length']:.3f}; ms (median of 30 "
               f"CUDA-event timings): " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
                                                    if k != "run_length"), flush=True)
-    # the previous schedule as it ran: one thread a particle in the caller's order
-    prev = per_order["given"]["atomics"]
     shipped = per_order["cell-sorted"]["run_sums"]
     g, c = per_order["given"], per_order["cell-sorted"]
-    print(f"B6 attribution: previous schedule (given order, 108 atomics) {prev:.4f} ms, shipped "
-          f"in a cell order {shipped:.4f} ms; splat ~ run_sums - nosplat: cell-sorted "
-          f"{c['run_sums'] - c['nosplat']:.4f}, given {g['run_sums'] - g['nosplat']:.4f} ms, "
-          f"previous splat {g['atomics'] - g['nosplat']:.4f} ms; the gather and constitutive "
-          f"math (nosplat) given {g['nosplat']:.4f} against cell-sorted {c['nosplat']:.4f} ms",
-          flush=True)
+    print(f"B6 attribution: shipped in a cell order {shipped:.4f} ms; splat ~ run_sums - nosplat: "
+          f"cell-sorted {c['run_sums'] - c['nosplat']:.4f}, given "
+          f"{g['run_sums'] - g['nosplat']:.4f} ms; the gather and constitutive math (nosplat) "
+          f"given {g['nosplat']:.4f} against cell-sorted {c['nosplat']:.4f} ms", flush=True)
 
     def fresh_given():
         return st.replace(**{k: getattr(st, k).clone() for k in fs.UPDATED_FIELDS})
@@ -634,16 +712,31 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
                      + (SVD3_OPS + RETURN_MAP_OPS) * (m in (1, 2, 3, 5)))
                 for m, c in counts.items())
     b = bound(n_bytes, n_ops)
-    print(f"fused_substep: kernel {shipped:.4f} ms (cell-sorted lanes), previous schedule "
-          f"{prev:.4f} ms, plain {p_ms:.4f} ms (median of 30 / 10 CUDA-event timings, {n} "
+    print(f"fused_substep: kernel {shipped:.4f} ms (cell-sorted lanes), plain {p_ms:.4f} ms "
+          f"(median of 30 / 10 CUDA-event timings, {n} "
           f"particles, {n_act} active, n_grid {n_grid}); bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} Mflop)", flush=True)
-    for line in build.BUILD_LOG.get("fused_substep", "(cached build: no ptxas report)").splitlines():
-        if "registers" in line or "spill" in line or "cached" in line:
-            print(f"fused_substep ptxas: {line.strip()}")
+    for line in _ptxas("fused_substep"):
+        print(f"fused_substep ptxas: {line}")
     return {"max_abs_err": err, "ms": shipped, "plain_ms": p_ms, **b, "library_ms": None,
-            "previous_ms": prev, "orders": per_order,
+            "orders": per_order,
             "run_length": {str(k): v[0] for k, v in runs.items()}}
+
+
+@contextlib.contextmanager
+def _unfused_frame_order(how: str):
+    """The unfused frame's particle order: "cell", as shipped (the state
+    permuted into P2G's cell order); "given", the frame never re-sorts, so
+    the state keeps the caller's order.  The fused frame is left as it is."""
+    from pixie_tpu_torch.sim import solver as solver_mod
+
+    shipped = solver_mod._substep
+    if how == "given":
+        solver_mod._substep = lambda *a: shipped(*a[:-1], False)
+    try:
+        yield
+    finally:
+        solver_mod._substep = shipped
 
 
 def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
@@ -657,19 +750,15 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
     reported apart.  Wall times are the best of 3 synchronized runs, taken
     before the profiler sessions of their turn; a frame of 1 substep varies
     by several ms on the host's clock, which the long frames dilute.  The
-    unfused substep runs four turns: with B1 as shipped, with the unbinned
-    splat (P1's full, the one-kernel P2G before the binning) in its place,
-    again unbinned, again binned; the fused substep four: with B6 as
-    shipped, with the previous B6 (108 atomics a particle, the caller's
-    order) in its place, again previous, again shipped."""
-    import contextlib
-
+    unfused substep runs four turns: with the frame's state in a cell order
+    (as shipped), in the caller's (random) order (P2G hands the frame no
+    order), again in the caller's, again in a cell order, each also with
+    B2's and B1's device time a substep from the profiler's kernels; the
+    fused substep twice, as shipped."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pixie_tpu_torch.ops import fused_substep as fs
-    from pixie_tpu_torch.ops import probe_ablation as pa
-    from pixie_tpu_torch.ops import transfer
     from pixie_tpu_torch.sim import bc as bc_mod
     from pixie_tpu_torch.sim.solver import simulate_substeps, simulate_substeps_fused
 
@@ -678,15 +767,6 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
                                         device=dev),)
     runs = {"unfused": simulate_substeps, "fused": simulate_substeps_fused}
     substeps = substeps or {"unfused": 20, "fused": 400}
-
-    @contextlib.contextmanager
-    def unbinned():
-        shipped = transfer.p2g
-        transfer.p2g = lambda *a: pa.p2g_variant("full", *a)
-        try:
-            yield
-        finally:
-            transfer.p2g = shipped
 
     def go(name, k):
         s = st.replace(**{f: getattr(st, f).clone() for f in fs.UPDATED_FIELDS})
@@ -710,36 +790,26 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
             launches = sum(1 for e in events if e.name in (
                 "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
             res[case] = (walls[case], len(kernels), launches,
-                         sum(e.time_range.elapsed_us() for e in kernels))
+                         sum(e.time_range.elapsed_us() for e in kernels),
+                         *(sum(e.time_range.elapsed_us() for e in kernels if name_ in e.name)
+                           for name_ in ("g2p_kernel", "p2g_binned_kernel")))
         one, full = res[1], res[k]
-        wall, n_kern, n_launch, dev_us = ((f - o) / (k - 1) for f, o in zip(full, one))
+        wall, n_kern, n_launch, dev_us, g2p_us, p2g_us = (
+            (f - o) / (k - 1) for f, o in zip(full, one))
         print(f"profile {label}, {n} particles, a substep (frame of {k} less frame of 1): "
               f"{1.0 / wall:.2f} substeps/s, {wall * 1e3:.3f} ms wall, {n_kern:.1f} device "
               f"kernels, {n_launch:.1f} kernel launches, device time {dev_us / 1e3:.3f} ms, "
               f"device idle {1.0 - dev_us * 1e-6 / wall:.3f} of the wall; a frame of 1 substep: "
               f"{one[0] * 1e3:.3f} ms wall, {one[1]} device kernels, {one[2]} launches, device "
-              f"time {one[3] / 1e3:.3f} ms", flush=True)
+              f"time {one[3] / 1e3:.3f} ms; a substep's B2 {g2p_us / 1e3:.4f} ms, B1's splat "
+              f"{p2g_us / 1e3:.4f} ms device", flush=True)
 
-    @contextlib.contextmanager
-    def previous_b6():
-        """The previous fused frame: the 108-atomic splat on the state in
-        the caller's order (P2G hands the frame no cell order)."""
-        shipped, shipped_p2g = fs.fused_substep, transfer.p2g
-        fs.fused_substep = lambda s, gv, c, dt, act: fs.fused_substep_variant(
-            "atomics", s, gv, c, dt, act)
-        transfer.p2g = lambda *a, return_order=False: (
-            (shipped_p2g(*a), None) if return_order else shipped_p2g(*a))
-        try:
-            yield
-        finally:
-            fs.fused_substep, transfer.p2g = shipped, shipped_p2g
-
-    for turn in ("binned", "unbinned", "unbinned", "binned"):
-        with unbinned() if turn == "unbinned" else contextlib.nullcontext():
-            measure("unfused", f"unfused ({turn} P2G)")
-    for turn in ("shipped", "previous", "previous", "shipped"):
-        with previous_b6() if turn == "previous" else contextlib.nullcontext():
-            measure("fused", f"fused ({turn} B6)")
+    names = {"cell": "state in a cell order", "given": "state in the caller's order"}
+    for turn in ("cell", "given", "given", "cell"):
+        with _unfused_frame_order(turn):
+            measure("unfused", f"unfused ({names[turn]})")
+    for _ in range(2):
+        measure("fused", "fused (B6 as shipped)")
 
 
 def _gs_model(dev, n: int = N_GAUSSIANS, res: int = RES, n_cams: int = 5):
@@ -849,10 +919,10 @@ def _power_bits_equal(bins, dev, n_tiles: int = 64) -> int:
 def _blend_ablation(bins, dev, tile_cap: int, bg: float = 0.0) -> dict:
     """B3's schedules on one scene, with and without the state, in turns:
     the shipped kernel (packed staging, per-warp entry lists, exact early
-    exit, half-tile blocks), the previous schedule and the ablations
-    nolists and alpha; the shipped kernel's img, T and state bit for bit
-    against the previous schedule's; the share of the (warp, entry) pairs
-    the lists keep.  Returns {mode: ms} a state."""
+    exit, half-tile blocks) and the ablations nolists and alpha; the shipped
+    kernel's img, T and state bit for bit against nolists' (the lists drop
+    no hit); the share of the (warp, entry) pairs the lists keep.  Returns
+    {mode: ms} a state."""
     import torch
 
     from pixie_tpu_torch.ops import gs_stream
@@ -861,18 +931,17 @@ def _blend_ablation(bins, dev, tile_cap: int, bg: float = 0.0) -> dict:
     out = {}
     for keep in (False, True):
         ship = gs_stream.blend_forward_variant("shipped", *args, keep)
-        prev = gs_stream.blend_forward_variant("previous", *args, keep)
+        full = gs_stream.blend_forward_variant("nolists", *args, keep)
         torch.cuda.synchronize()
-        if not all((g is None and w is None) or torch.equal(g, w) for g, w in zip(ship, prev)):
-            fail(f"B3 (state {keep}) is not bitwise equal to the previous schedule")
+        if not all((g is None and w is None) or torch.equal(g, w) for g, w in zip(ship, full)):
+            fail(f"B3 (state {keep}) is not bitwise equal to its nolists ablation")
         ms = {}
-        for mode in ("shipped", "previous", "nolists", "alpha", "shipped (again)",
-                     "previous (again)"):
+        for mode in ("shipped", "nolists", "alpha", "shipped (again)"):
             ms[mode] = cuda_ms(lambda m=mode.split()[0]: gs_stream.blend_forward_variant(
                 m, *args, keep))
         out["state" if keep else "no_state"] = ms
         print(f"B3 at tile_cap {tile_cap}, {'keeping' if keep else 'without'} the state: img, T"
-              f"{', state' if keep else ''} bitwise equal to the previous schedule's; ms (median "
+              f"{', state' if keep else ''} bitwise equal to nolists'; ms (median "
               f"of 30 CUDA-event timings, in turns): "
               + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
     box = gs_stream.blend_box_plain(bins.feat)
@@ -1309,12 +1378,15 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
             fail(f"GS launches {launches} != {substeps} substeps, {n_frames} frames")
         _check_gs_run(gs_out, info, n_frames, res)
 
-        # (c) the fused path: fused frames wherever no particle BC is active
+        # (c) the fused path: fused frames wherever no particle BC is active;
+        # its unfused frame 0 keeps the caller's order, (b)'s runs in a cell
+        # order, and the two are compared below
         _reset_counts()
         gs_fused = root / "sim_gs_fused"
-        info_f = pipeline.run_physics_simulation(ply, tree_cfg, gs_fused, n_frames=n_frames,
-                                                 debug=True, gaussian_checkpoint=gs_dir,
-                                                 render_img=True, device=dev, fused=True)
+        with _unfused_frame_order("given"):
+            info_f = pipeline.run_physics_simulation(ply, tree_cfg, gs_fused, n_frames=n_frames,
+                                                     debug=True, gaussian_checkpoint=gs_dir,
+                                                     render_img=True, device=dev, fused=True)
         launches_f = _read_counts()
         _check_fused_launches("GS", info_f, launches_f, n_frames, gs_blend=n_frames)
         _check_gs_run(gs_fused, info_f, n_frames, res)
@@ -1325,13 +1397,16 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
             d = ((load_gaussian_ply(gs_out / "ply_files" / name)["xyz"]
                   - load_gaussian_ply(gs_fused / "ply_files" / name)["xyz"]).norm(dim=1)
                  / dx_world)
-            how = ("fused against unfused" if i - 1 in info_f["fused_frames"]
-                   else "unfused in both runs")
+            if i - 1 in info_f["fused_frames"]:
+                how, bounds = "fused against unfused", (FUSED_DX_MAX, FUSED_DX_MEAN)
+            else:
+                how, bounds = ("unfused in both runs, a cell order against the caller's",
+                               (ORDER_DX_MAX, ORDER_DX_MEAN))
             print(f"fused vs unfused GS rollout, x after frame {i - 1} ({how}): max |dx| "
                   f"{float(d.max()):.3e} cells, mean {float(d.mean()):.3e} cells (bound "
-                  f"{FUSED_DX_MAX} / {FUSED_DX_MEAN})", flush=True)
-            if not (float(d.max()) <= FUSED_DX_MAX and float(d.mean()) <= FUSED_DX_MEAN):
-                fail(f"fused and unfused GS rollouts diverge after frame {i - 1}")
+                  f"{bounds[0]} / {bounds[1]})", flush=True)
+            if not (float(d.max()) <= bounds[0] and float(d.mean()) <= bounds[1]):
+                fail(f"the GS rollouts diverge after frame {i - 1} ({how})")
 
         _reset_counts()
         pc_fused = root / "sim_fused"

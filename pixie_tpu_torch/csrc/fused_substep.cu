@@ -52,10 +52,11 @@
 //
 // Before the run sums B6 splatted with 108 float atomics a particle (mpm.cuh
 // p2g_particle<kP2GFull>, P1's `full`), 95 % of that splat's time by P1's
-// ablation.  Schedules (template flag; chip_smoke.py times them, no path of
-// the port calls the last two): kRunSums, shipped; kAtomics, the previous
-// splat, one thread's 108 atomics; kNoSplat, phases 1-3 alone, which prices
-// the gather and the constitutive math apart from the splat.
+// ablation; in the given order that kernel took 0.2640-0.3668 ms against
+// 0.1416-0.2303 for the run sums in a cell order (PERF.md), and it was
+// then deleted.  Schedules (template flag): kRunSums, shipped; kNoSplat,
+// phases 1-3 alone, which prices the gather and the constitutive math apart
+// from the splat (chip_smoke.py times it; no path of the port calls it).
 //
 // Not carried over from the TPU kernel: its tile-sorted particle blocks, the
 // (48, NB*128) row packing of the carried state, the one-hot window factors
@@ -88,7 +89,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-enum Schedule : int { kRunSums = 0, kAtomics = 1, kNoSplat = 2 };
+enum Schedule : int { kRunSums = 0, kNoSplat = 1 };
 
 struct Params {
   int n, n_grid;
@@ -291,28 +292,17 @@ fused_substep_kernel(float* __restrict__ x, float* __restrict__ v, float* __rest
   constexpr float kMax = 3.402823466e38f;  // |x| <= FLT_MAX: false for NaN and inf
   const bool splat = live && fabsf(xp[0]) <= kMax && fabsf(xp[1]) <= kMax &&
                      fabsf(xp[2]) <= kMax && pixie::stencil_in_grid(s, n_grid);
-  if constexpr (kSched == kAtomics) {
-    if (splat)
-      pixie::splat_nodes<pixie::kP2GFull>(
-          s, nv[0], nv[1], nv[2], c, m, sc, n_grid, dx, inv_dx,
-          [&](int gi, int gj, int gk, float mx, float my, float mz, float wm) {
-            pixie::atomic_add_node(grid_next, n_grid, gi, gj, gk, mx, my, mz, wm);
-          });
-  } else {
-    const pixie::Run run =
-        pixie::lane_run(splat ? pixie::cell_label(s, n_grid) : -1 - lane, lane);
-    pixie::splat_nodes<pixie::kP2GFull, true>(s, nv[0], nv[1], nv[2], c, m, sc, n_grid, dx,
-                                              inv_dx,
-                                              pixie::RunSink{splat, run, lane, n_grid, grid_next});
-  }
+  const pixie::Run run = pixie::lane_run(splat ? pixie::cell_label(s, n_grid) : -1 - lane, lane);
+  pixie::splat_nodes<pixie::kP2GFull, true>(s, nv[0], nv[1], nv[2], c, m, sc, n_grid, dx, inv_dx,
+                                            pixie::RunSink{splat, run, lane, n_grid, grid_next});
 }
 
 }  // namespace
 
 extern "C" {
 
-// schedule 0 is the shipped kernel (run sums), 1 the previous splat (108
-// atomics a particle), 2 the substep without its splat
+// schedule 0 is the shipped kernel (run sums), 1 the substep without its
+// splat
 int pixie_fused_substep(int schedule, float* x, float* v, float* C, float* F, float* F_trial,
                         float* stress, float* mu, float* lam, float* yield_stress, float* cov,
                         const float* mass, const float* vol, const int32_t* material,
@@ -332,7 +322,6 @@ int pixie_fused_substep(int schedule, float* x, float* v, float* C, float* F, fl
                                                       bulk, active, grid_v, grid_next, prm)
     switch (schedule) {
       case kRunSums: PIXIE_FUSED_LAUNCH(kRunSums); break;
-      case kAtomics: PIXIE_FUSED_LAUNCH(kAtomics); break;
       case kNoSplat: PIXIE_FUSED_LAUNCH(kNoSplat); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -53,12 +53,13 @@
 // evaluates, not the bound's count.  The gathered rows (36 B) come from a
 // 3.6 MB table that stays in L2.
 //
-// The previous schedule (blend_previous_kernel, the `previous` mode, kept
-// so that chip_smoke.py times it in turn): one block of 256 threads a tile,
-// each entry staged as 9 scalar floats (nine shared loads a pair), no lists
-// and no early exit.  The modes `nolists` (1 and 3, one gate at a time) and
-// `alpha` (1, the gate of every pair and no compositing) price the parts.  No path
-// of the port calls the modes.
+// The schedule before this one (one block of 256 threads a tile, each entry
+// staged as 9 scalar floats, no lists, no early exit) took 0.4761-0.5531 ms
+// against this kernel's 0.2814-0.3415 at tile_cap 1024 keeping the state,
+// with img, T and state bit for bit the same (PERF.md); it was then
+// deleted.  The modes `nolists` (1, no per-warp lists, one gate at a time)
+// and `alpha` (2, the gate of every pair and no compositing) price the
+// parts; chip_smoke.py times them, and no path of the port calls them.
 //
 // The TPU kernel forms the exclusive transmittance of a 128-splat chunk as
 // a matmul of log(1 - alpha) with a triangular matrix, which puts the scan
@@ -95,81 +96,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // min(a, hi) that passes NaN through, as torch.clamp(max=) and jnp.minimum
 // do (fminf would return hi)
 __device__ __forceinline__ float clamp_max(float a, float hi) { return a > hi ? hi : a; }
-
-// kState: also sum the colour in double into state (H*W, 4) doubles, each
-// pixel's colour before the background and its final T, which the backward
-// reads instead of walking twice
-template <bool kState>
-__global__ void __launch_bounds__(kPix)
-blend_previous_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
-                      const int32_t* __restrict__ starts, const int32_t* __restrict__ counts,
-                      int n_feat, int n_idx, int tx_n, int width, float bg,
-                      float* __restrict__ img,
-                      float* __restrict__ trans_out, double* __restrict__ state) {
-  __shared__ float s[kFeat][kPix];
-  const int t = blockIdx.x;
-  const int i = threadIdx.x;
-  const int x = (t % tx_n) * kTile + (i % kTile);
-  const int y = (t / tx_n) * kTile + (i / kTile);
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
-
-  const int start = starts[t];
-  const int count = (start < 0 || start > n_idx) ? 0 : max(0, min(counts[t], n_idx - start));
-  float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  double sr = 0.0, sg = 0.0, sb = 0.0;  // kState
-
-  for (int base = 0; base < count; base += kPix) {
-    const int m = min(kPix, count - base);
-    __syncthreads();  // the previous batch has been consumed
-    if (i < m) {
-      const int g = idx[start + base + i];
-      const bool ok = g >= 0 && g < n_feat;
-      const float* row = feat + static_cast<int64_t>(kFeat) * (ok ? g : 0);
-#pragma unroll
-      for (int k = 0; k < kFeat; ++k) s[k][i] = ok ? row[k] : 0.0f;  // op 0: transparent
-    }
-    __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      const float dx = __fsub_rn(px, s[0][j]);
-      const float dy = __fsub_rn(py, s[1][j]);
-      // power = -0.5 * (c0 dx dx + c2 dy dy) - c1 dx dy
-      const float q = __fadd_rn(__fmul_rn(__fmul_rn(s[2][j], dx), dx),
-                                __fmul_rn(__fmul_rn(s[4][j], dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, q),
-                                    __fmul_rn(__fmul_rn(s[3][j], dx), dy));
-      const float alpha = clamp_max(__fmul_rn(s[8][j], expf(clamp_max(power, 0.0f))), kAlphaMax);
-      if (!(alpha >= kAlphaMin)) continue;  // as the JAX mask: NaN drops too
-      const float w = alpha * T;
-      if constexpr (kState) {  // exact products, one rounding a sum, as the backward repeats
-        sr += static_cast<double>(w) * static_cast<double>(s[5][j]);
-        sg += static_cast<double>(w) * static_cast<double>(s[6][j]);
-        sb += static_cast<double>(w) * static_cast<double>(s[7][j]);
-      } else {
-        cr += w * s[5][j];
-        cg += w * s[6][j];
-        cb += w * s[7][j];
-      }
-      T *= 1.0f - alpha;
-    }
-  }
-
-  const int64_t p = static_cast<int64_t>(y) * width + x;
-  if constexpr (kState) {
-    cr = static_cast<float>(sr);
-    cg = static_cast<float>(sg);
-    cb = static_cast<float>(sb);
-    double* st = state + 4 * p;
-    st[0] = sr;
-    st[1] = sg;
-    st[2] = sb;
-    st[3] = T;
-  }
-  img[3 * p + 0] = cr + bg * T;
-  img[3 * p + 1] = cg + bg * T;
-  img[3 * p + 2] = cb + bg * T;
-  trans_out[p] = T;
-}
 
 // ---------------------------------------------------------------------------
 // The pixels an entry can pass the gate at.  The gate passes only where
@@ -214,7 +140,7 @@ __device__ __forceinline__ float4 blend_box(float mx, float my, float c0, float 
   return make_float4(mx - hx, mx + hx, my - hy, my + hy);
 }
 
-enum BlendMode : int { kBlendShipped = 0, kBlendNoLists = 1, kBlendAlpha = 2, kBlendPrevious = 3 };
+enum BlendMode : int { kBlendShipped = 0, kBlendNoLists = 1, kBlendAlpha = 2 };
 
 // blend_kernel: kSplit blocks a tile, each on kRows of its rows, kThreadsB
 // threads (a warp an 8 x 4 block of pixels)
@@ -668,9 +594,6 @@ bool launch_blend(int mode, int n_tiles, const BlendArgs& a, cudaStream_t s) {
     case kBlendAlpha:
       blend_kernel<kState, kBlendAlpha><<<kSplit * n_tiles, kThreadsB, 0, s>>>(PIXIE_BLEND_ARGS);
       return true;
-    case kBlendPrevious:
-      blend_previous_kernel<kState><<<n_tiles, kPix, 0, s>>>(PIXIE_BLEND_ARGS);
-      return true;
     default:
       return false;
   }
@@ -682,8 +605,7 @@ bool launch_blend(int mode, int n_tiles, const BlendArgs& a, cudaStream_t s) {
 extern "C" {
 
 // mode 0 is the shipped blend; the ablations: 1 nolists, 2 alpha (the gate
-// of every pair, no compositing), 3 previous (scalar staging, no lists, no
-// early exit).  state (H*W, 4) double, or null: each pixel's colour before
+// of every pair, no compositing).  state (H*W, 4) double, or null: each pixel's colour before
 // the background (summed in double) and its final T, which the backward
 // reads instead of walking twice
 int pixie_gs_blend(int mode, const float* feat, const int32_t* idx, const int32_t* starts,

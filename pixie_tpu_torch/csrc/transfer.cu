@@ -135,39 +135,78 @@ p2g_binned_kernel(const int32_t* __restrict__ keys, const int64_t* __restrict__ 
 // grid-velocity gather, APIC C (scaled by 4 inv_dx) and grad(v); fused with
 // the glue of pixie_tpu/sim/solver.py:204-219 (advection,
 // F_trial = (I + dt grad v) F, optional covariance transport), as the
-// reference's own g2p kernel does (mpm_utils.py:412-463).
+// reference's own g2p kernel does (mpm_utils.py:412-463).  Particles with
+// selection != 0 keep every field.
 //
-// Design: one thread per particle; 27 in-bounds-masked gathers of 3 floats
-// from the (G^3, 3) velocity grid, results written in place for particles
-// with selection == 0.
+// Bound: per active particle 196 B of rows (x, F, cov in; x, v, C, F_trial,
+// cov out) and 27 gathered nodes of the 1.5 MB velocity grid (n_grid 50),
+// which stays in L2: ~6 us at 100k particles over the HBM rate.  The gather
+// is what costs: 81 loads a particle.
 //
-// Bound: per-particle memory traffic (x, v, C, F, F_trial: 30 floats in,
-// 24 out) plus 81 gathered floats that hit L2 (the 1.5 MB velocity grid stays
-// resident).  Neighbouring threads read neighbouring particles, so the
-// particle streams coalesce poorly on the 3x3 rows only by a constant factor.
-// Later work: cell-sorted particle order for gather locality.
+// Design: lane q takes particle q, and the caller keeps its particles in a
+// cell order (sim/solver.py permutes an unfused frame's state into P2G's
+// order, as the fused frame does), the Hopper form of JAX's tile-sorted
+// particle blocks.  The lanes of one cell then gather the same 27 nodes, so
+// a warp's gather instruction touches the nodes of ~6 cells instead of up to
+// 32 random ones.  Any order is exact; a random one is only slower.  The
+// 12-, 24- and 36-byte rows of a warp's 32 consecutive particles are moved
+// through a per-warp slice of shared memory, so each row array is read and
+// written with lane-contiguous 4-byte accesses (a warp's 36-byte rows span 36
+// sectors: written row by row, each of the 9 stores touches all of them).
+// 128 threads a block: 782 blocks at 100k particles, ~6 a SM, where 256
+// made about one uneven wave.  x(s+1) = x + dt v is rounded op by op, as the
+// plain version rounds it, so the next substep's floor() sees the same
+// position.
+//
+// Device ms at 100k particles, n_grid 50, phase 3's state in its given
+// (random) order / sorted by cell / sorted, then 100 unfused substeps
+// (mean runs of same-cell lanes 1.00 / 5.48 / 4.77), as chip_smoke.py timed
+// the schedules while they were kept (one run, NVIDIA H100 80GB HBM3, 700 W):
+// this kernel 0.0247 / 0.0198 / 0.0200; each lane reading and writing its
+// own rows 0.0413 / 0.0280 / 0.0279; the block's box of nodes staged in
+// shared memory where it fits (<= 1024 nodes), gathers from it 0.0276 /
+// 0.0212 / 0.0213; lane q reading its particle through B1's sorted order of
+// the same substep (rows where they lie) 0.0662 / 0.0332 / 0.0339.  The first
+// kernel (256 threads, own rows, the caller's order) took 0.0593-0.0822 ms
+// around the call.  The others were then deleted.
 // ---------------------------------------------------------------------------
-__global__ void g2p_kernel(float* __restrict__ x,
-                           float* __restrict__ v,
-                           float* __restrict__ C,
-                           const float* __restrict__ F,
-                           float* __restrict__ F_trial,
-                           float* __restrict__ cov,
-                           const int32_t* __restrict__ selection,
-                           const float* __restrict__ grid_v,
-                           int n, int n_grid, float inv_dx, float dt,
-                           int update_cov) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n || selection[p] != 0) return;
+constexpr int kG2PThreads = 128;
+constexpr int kG2PWarps = kG2PThreads / 32;
+constexpr int kStage = 32 * 9;           // floats of a warp's staged rows
 
-  const Spline s = spline_weights(x + 3 * p, inv_dx);
-
-  float nv[3] = {0.f, 0.f, 0.f};
-  float nc[9];
-  float gv[9];
+// rows [p0, p0 + count) of a (N, K) array, lane-contiguous, into the warp's
+// stage; then row `lane` into val
+template <int K>
+__device__ __forceinline__ void load_rows(float* __restrict__ stage, const float* __restrict__ src,
+                                          int p0, int count, int lane, float (&val)[K]) {
+  const float* in = src + static_cast<int64_t>(p0) * K;
+  __syncwarp();
+  for (int e = lane; e < count * K; e += 32) stage[e] = in[e];
+  __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 9; ++k) { nc[k] = 0.f; gv[k] = 0.f; }
+  for (int k = 0; k < K; ++k) val[k] = stage[lane * K + k];
+}
 
+// val of every lane into the warp's stage, then rows [p0, p0 + count) of a
+// (N, K) array written lane-contiguous, those of lanes not in `write` left
+template <int K>
+__device__ __forceinline__ void store_rows(float* __restrict__ stage, float* __restrict__ dst,
+                                           int p0, int count, int lane, unsigned write,
+                                           const float (&val)[K]) {
+  float* out = dst + static_cast<int64_t>(p0) * K;
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < K; ++k) stage[lane * K + k] = val[k];
+  __syncwarp();
+  for (int e = lane; e < count * K; e += 32)
+    if ((write >> (e / K)) & 1u) out[e] = stage[e];
+}
+
+// v, C (unscaled) and grad v of the 27 nodes around s, out-of-grid nodes
+// skipped
+__device__ __forceinline__ void gather_nodes(const Spline& s, int n_grid, float inv_dx,
+                                             const float* __restrict__ grid_v, float (&nv)[3],
+                                             float (&nc)[9], float (&gv)[9]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int gi = s.base[0] + i;
@@ -190,62 +229,87 @@ __global__ void g2p_kernel(float* __restrict__ x,
                                static_cast<float>(k) - s.fx[2]};
         const float* node =
             grid_v + 3 * ((static_cast<int64_t>(gi) * n_grid + gj) * n_grid + gk);
-        const float g[3] = {node[0], node[1], node[2]};
+        const float gg[3] = {node[0], node[1], node[2]};
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
-          const float wg = weight * g[r];
+          const float wg = weight * gg[r];
           nv[r] += wg;
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
             nc[3 * r + q] += wg * dpos[q];
-            gv[3 * r + q] += g[r] * dwt[q];
+            gv[3 * r + q] += gg[r] * dwt[q];
           }
         }
       }
     }
   }
+}
 
+__global__ void __launch_bounds__(kG2PThreads)
+g2p_kernel(float* __restrict__ x, float* __restrict__ v, float* __restrict__ C,
+           const float* __restrict__ F, float* __restrict__ F_trial, float* __restrict__ cov,
+           const int32_t* __restrict__ selection, const float* __restrict__ grid_v, int n,
+           int n_grid, float inv_dx, float dt, int update_cov) {
+  __shared__ float s_stage[kG2PWarps * kStage];
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kG2PThreads + threadIdx.x;
+  const int p0 = p - lane;                       // the warp's first particle
+  if (p0 >= n) return;
+  const int count = min(32, n - p0);
+  const bool live = p < n && selection[p] == 0;
+  const unsigned write = __ballot_sync(kFull, live);
+  float* stage = s_stage + (threadIdx.x >> 5) * kStage;
+
+  float xp[3];
+  load_rows<3>(stage, x, p0, count, lane, xp);
+  const Spline s = spline_weights(xp, inv_dx);
+  float nv[3] = {0.f, 0.f, 0.f}, nc[9], gv[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) nc[k] = gv[k] = 0.f;
+  if (live) gather_nodes(s, n_grid, inv_dx, grid_v, nv, nc, gv);
+
+  // advect, C, F_trial = (I + dt grad v) F, cov; the rows of lanes not live
+  // are not written
   const float c_scale = inv_dx * 4.0f;
+  float xn[3], cn[9], f[9], ft[9];
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    v[3 * p + r] = nv[r];
-    x[3 * p + r] = x[3 * p + r] + dt * nv[r];
-  }
+  for (int r = 0; r < 3; ++r) xn[r] = __fadd_rn(xp[r], __fmul_rn(dt, nv[r]));
 #pragma unroll
-  for (int k = 0; k < 9; ++k) C[9 * p + k] = nc[k] * c_scale;
-
-  // F_trial = (I + dt grad_v) F
+  for (int k = 0; k < 9; ++k) cn[k] = nc[k] * c_scale;
+  load_rows<9>(stage, F, p0, count, lane, f);
   float a[9];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
-    for (int q = 0; q < 3; ++q)
-      a[3 * r + q] = (r == q ? 1.0f : 0.0f) + gv[3 * r + q] * dt;
-  const float* f = F + 9 * p;
+    for (int c = 0; c < 3; ++c) a[3 * r + c] = (r == c ? 1.0f : 0.0f) + gv[3 * r + c] * dt;
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
-    for (int q = 0; q < 3; ++q)
-      F_trial[9 * p + 3 * r + q] =
-          a[3 * r] * f[q] + a[3 * r + 1] * f[3 + q] + a[3 * r + 2] * f[6 + q];
+    for (int c = 0; c < 3; ++c)
+      ft[3 * r + c] = a[3 * r] * f[c] + a[3 * r + 1] * f[3 + c] + a[3 * r + 2] * f[6 + c];
+  store_rows<3>(stage, x, p0, count, lane, write, xn);
+  store_rows<3>(stage, v, p0, count, lane, write, nv);
+  store_rows<9>(stage, C, p0, count, lane, write, cn);
+  store_rows<9>(stage, F_trial, p0, count, lane, write, ft);
 
   if (update_cov) {
     // cov += dt (grad_v cov + (grad_v cov)^T)  (update_cov, mpm_utils.py:316-335)
-    float* c6 = cov + 6 * p;
-    const float cm[9] = {c6[0], c6[1], c6[2], c6[1], c6[3], c6[4], c6[2], c6[4], c6[5]};
+    float cm6[6], c6[6];
+    load_rows<6>(stage, cov, p0, count, lane, cm6);
+    const float cm[9] = {cm6[0], cm6[1], cm6[2], cm6[1], cm6[3], cm6[4], cm6[2], cm6[4], cm6[5]};
     float gc[9];
 #pragma unroll
     for (int r = 0; r < 3; ++r)
 #pragma unroll
-      for (int q = 0; q < 3; ++q)
-        gc[3 * r + q] = gv[3 * r] * cm[q] + gv[3 * r + 1] * cm[3 + q] +
-                        gv[3 * r + 2] * cm[6 + q];
+      for (int c = 0; c < 3; ++c)
+        gc[3 * r + c] = gv[3 * r] * cm[c] + gv[3 * r + 1] * cm[3 + c] + gv[3 * r + 2] * cm[6 + c];
     c6[0] = cm[0] + dt * (gc[0] + gc[0]);
     c6[1] = cm[1] + dt * (gc[1] + gc[3]);
     c6[2] = cm[2] + dt * (gc[2] + gc[6]);
     c6[3] = cm[4] + dt * (gc[4] + gc[4]);
     c6[4] = cm[5] + dt * (gc[5] + gc[7]);
     c6[5] = cm[8] + dt * (gc[8] + gc[8]);
+    store_rows<6>(stage, cov, p0, count, lane, write, c6);
   }
 }
 
@@ -280,13 +344,13 @@ int pixie_p2g(const int32_t* keys, const int64_t* perm, const float* x, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-int pixie_g2p(float* x, float* v, float* C, const float* F, float* F_trial,
-              float* cov, const int32_t* selection, const float* grid_v, int n,
-              int n_grid, float inv_dx, float dt, int update_cov, void* stream) {
+int pixie_g2p(float* x, float* v, float* C, const float* F, float* F_trial, float* cov,
+              const int32_t* selection, const float* grid_v, int n, int n_grid, float inv_dx,
+              float dt, int update_cov, void* stream) {
   if (n > 0) {
-    g2p_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, v, C, F, F_trial, cov, selection, grid_v, n, n_grid, inv_dx, dt,
-        update_cov);
+    g2p_kernel<<<(n + kG2PThreads - 1) / kG2PThreads, kG2PThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(x, v, C, F, F_trial, cov, selection, grid_v,
+                                                      n, n_grid, inv_dx, dt, update_cov);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,9 +37,9 @@ from pixie_tpu_torch.sim.types import MPMConfig, MPMState
 
 FUSED_LAUNCHES = 0
 # kernel schedules (csrc/fused_substep.cu): the shipped run sums, and the
-# ablations that chip_smoke.py times and no path of the port calls: the
-# previous splat (108 atomics a particle) and the substep without its splat
-SCHEDULES = {"run_sums": 0, "atomics": 1, "nosplat": 2}
+# ablation that chip_smoke.py times and no path of the port calls: the
+# substep without its splat
+SCHEDULES = {"run_sums": 0, "nosplat": 1}
 
 # fields the substep rewrites in place (besides the grid it returns)
 UPDATED_FIELDS = ("x", "v", "C", "F", "F_trial", "stress", "mu", "lam", "yield_stress",

@@ -46,9 +46,8 @@ BLEND_LAUNCHES = 0
 BLEND_BWD_LAUNCHES = 0
 # ablation modes of the kernels (csrc/gs_stream.cu flags): timed by
 # chip_smoke.py, called by no path of the port.  The forward's: without the
-# per-warp entry lists, the gate of every pair without compositing, and the
-# previous schedule (nine scalar shared loads a pair, no lists, no exit)
-BLEND_MODES = {"nolists": 1, "alpha": 2, "previous": 3}
+# per-warp entry lists, and the gate of every pair without compositing
+BLEND_MODES = {"nolists": 1, "alpha": 2}
 BWD_MODES = {"noreduce": 2, "pass1": 4}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -86,33 +86,31 @@ def p2g2p(state: MPMState, cfg: MPMConfig, bcs, time, dt,
     """One explicit MPM substep (p2g2p, mpm_solver_warp.py:514-637).
 
     ``time`` and ``dt`` are float32 scalars (host side)."""
+    return _substep(state, cfg, bcs, time, dt, node_x, False)[0]
+
+
+def _substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, node_x, resort: bool):
+    """p2g2p; with ``resort``, the state is permuted into P2G's cell order
+    between P2G and G2P where P2G returns one (on the card).  Returns the
+    state and that order (None if the state kept its order)."""
     for b in bcs:
         if isinstance(b, bc_mod.PARTICLE_BC_TYPES):
             state = b.apply(time, dt, state)
     state = compute_stress_from_F_trial(state, cfg, dt)
-    grid = p2g(state, cfg, dt)
+    grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
+                               state.vol, state.selection == 0, cfg, dt, return_order=True)
     grid_v = grid_update(grid, cfg, dt, time, bcs, node_x)
-    return g2p(state, grid_v, cfg, dt)
+    order = order if resort else None
+    if order is not None:
+        state = permute_state(state, order)
+    return g2p(state, grid_v, cfg, dt), order
 
 
-def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
-                      n_substeps: int) -> MPMState:
-    """n_substeps substeps; the substep time is f32(time0) + f32(step) * f32(dt)
-    as in the JAX scan (pixie_tpu/sim/solver.py:291)."""
-    time0, dt = np.float32(time0), np.float32(dt)
-    node_x = node_positions(cfg, state.device) if any(
-        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
-    for step in range(n_substeps):
-        t = np.float32(time0 + np.float32(step) * dt)
-        state = p2g2p(state, cfg, bcs, t, dt, node_x)
-    return state
-
-
-# substeps between two cell sorts of the fused frame's particles: their
-# runs of same-cell lanes shorten as they drift from the order of the last
-# sort (on chip_smoke.py's 100k-particle state, NVIDIA H100 80GB HBM3, the
-# mean run length of a kept order fell from 5.13 at substep 1 to 4.40 at
-# 100 and 2.24 at 399; PERF.md)
+# substeps between two cell sorts of a frame's particles: their runs of
+# same-cell lanes shorten as they drift from the order of the last sort (on
+# chip_smoke.py's 100k-particle state, NVIDIA H100 80GB HBM3, the mean run
+# length of a kept order fell from 5.13 at substep 1 to 4.40 at 100 and
+# 2.24 at 399; PERF.md)
 RESORT_EVERY = 100
 
 
@@ -121,6 +119,45 @@ def permute_state(state: MPMState, idx: torch.Tensor) -> MPMState:
     array's own device)."""
     fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     return state.replace(**{k: t[idx.to(t.device)] for k, t in fields.items()})
+
+
+def _permute_bcs(bcs, idx: torch.Tensor) -> tuple:
+    """The particle BCs with their (N,) masks taken at ``idx``, so that
+    each still selects its particles in a state permuted by ``idx``."""
+    return tuple(dataclasses.replace(b, mask=b.mask[idx.to(b.mask.device)])
+                 if isinstance(b, bc_mod.PARTICLE_BC_TYPES) else b for b in bcs)
+
+
+def _caller_order(state: MPMState, order: torch.Tensor) -> MPMState:
+    """``state``, whose particle i is the caller's particle order[i], back
+    in the caller's order."""
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.shape[0], device=order.device)
+    return permute_state(state, back)
+
+
+def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
+                      n_substeps: int) -> MPMState:
+    """n_substeps substeps; the substep time is f32(time0) + f32(step) * f32(dt)
+    as in the JAX scan (pixie_tpu/sim/solver.py:291).
+
+    On the card the frame runs on its state sorted by cell, so the lanes of
+    one cell sit side by side in G2P's warps and gather the same nodes: the
+    state is permuted into P2G's order between P2G and G2P of substep 0 and
+    again every RESORT_EVERY substeps, the particle BCs' masks with it, and
+    the returned state is back in the caller's order.  On the CPU P2G
+    returns no order and the state keeps its order."""
+    time0, dt = np.float32(time0), np.float32(dt)
+    node_x = node_positions(cfg, state.device) if any(
+        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    frame = None     # the state's particle i is the caller's particle frame[i]
+    for step in range(n_substeps):
+        t = np.float32(time0 + np.float32(step) * dt)
+        state, order = _substep(state, cfg, bcs, t, dt, node_x, step % RESORT_EVERY == 0)
+        if order is not None:
+            bcs = _permute_bcs(bcs, order)
+            frame = order if frame is None else frame[order]
+    return state if frame is None else _caller_order(state, frame)
 
 
 def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
@@ -157,11 +194,7 @@ def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
         grid = fs.fused_substep(state, grid_v, cfg, dt, active)
     t = np.float32(time0 + np.float32(n_substeps - 1) * dt)
     state = g2p(state, grid_update(grid, cfg, dt, t, bcs, node_x), cfg, dt)
-    if order is not None:
-        back = torch.empty_like(order)
-        back[order] = torch.arange(order.shape[0], device=order.device)
-        state = permute_state(state, back)
-    return state
+    return state if order is None else _caller_order(state, order)
 
 
 def _unpack_cov(c):

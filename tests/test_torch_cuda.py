@@ -90,6 +90,87 @@ def test_g2p_kernel_matches_plain(cuda_device, update_cov):
                                    atol=1e-5, rtol=1e-4, err_msg=k)
 
 
+def _g2p_order(st, cfg, order):
+    """B2's three orders: the state as given (random), sorted by cell, and
+    sorted by cell before a drift of up to 0.8 cell on each axis."""
+    from pixie_tpu_torch.sim.solver import permute_state
+
+    if order == "given":
+        return st
+    st = permute_state(st, transfer.cell_order(st.x, st.selection == 0, cfg))
+    if order == "stale":
+        rng = np.random.default_rng(3)
+        st = st.replace(x=st.x + torch.as_tensor(
+            (rng.uniform(-0.8, 0.8, (st.n_particles, 3)) * cfg.dx).astype(np.float32)))
+    return st
+
+
+@pytest.mark.parametrize("order", ["given", "cell_sorted", "stale"])
+@pytest.mark.parametrize("update_cov", [False, True])
+def test_g2p_kernel_in_three_orders(cuda_device, update_cov, order):
+    """B2 on particles in the given order, sorted by cell and in a cell order
+    gone stale (every 13th inactive, stencils hanging off both faces): each
+    field to 1e-5 of its largest |value| (G2P_RTOL) against the plain
+    version, inactive particles untouched."""
+    st = _g2p_order(_state(seed=3), MPMConfig(n_grid=24, grid_lim=2.0), order)
+    cfg = MPMConfig(n_grid=24, grid_lim=2.0, update_cov_with_F=update_cov)
+    grid_v = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(24, 24, 24, 3)).astype(np.float32))
+    want = transfer.g2p_plain(_to(st, "cpu", G2P_FIELDS), grid_v, cfg, DT)
+    got = _to(st, cuda_device, G2P_FIELDS + ("F", "selection"))
+    before = transfer.G2P_LAUNCHES
+    transfer.g2p(got, grid_v.to(cuda_device), cfg, DT)
+    assert transfer.G2P_LAUNCHES == before + 1
+    inactive = to_np(st.selection) != 0
+    for k in G2P_FIELDS:
+        w = to_np(getattr(want, k))
+        g = to_np(getattr(got, k))
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max(), err_msg=k)
+        np.testing.assert_array_equal(g[inactive], to_np(getattr(st, k))[inactive], err_msg=k)
+
+
+def test_unfused_frame_with_an_impulse_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """The unfused frame on CUDA (its state in P2G's cell order, re-sorted
+    every 3 substeps, the impulse's and the translation's masks travelling
+    with it) against the same frame on the CPU (the caller's order): x
+    within 1e-5, v within 1e-4 of its largest |value|; one P2G and one G2P
+    launch a substep; inactive particles keep x, C and F_trial (the
+    particle BCs set v whatever the selection)."""
+    from pixie_tpu_torch.sim import bc as bc_mod
+    from pixie_tpu_torch.sim import solver as S
+
+    st = _state(n=4096, seed=5)
+    st = st.replace(F_trial=st.F.clone())
+    x0 = to_np(st.x)
+    cfg = MPMConfig(n_grid=24, grid_lim=2.0, gravity=(0.0, 0.0, -9.8), rpic_damping=0.1)
+    specs = [{"type": "particle_impulse", "force": [0.0, 0.0, 0.05], "point": [1.0, 1.0, 1.0],
+              "size": [0.3, 0.3, 0.3], "num_dt": 5},
+             {"type": "enforce_particle_translation", "point": [0.7, 0.7, 1.0],
+              "size": [0.2, 0.2, 0.5], "velocity": [0.0, 0.0, 1.0], "start_time": 0.0,
+              "end_time": 1.0},
+             {"type": "surface_collider", "point": [1.0, 1.0, 0.5], "normal": [0.0, 0.0, 1.0],
+              "surface": "sticky", "friction": 0.0, "start_time": 0.0, "end_time": 1e3}]
+    monkeypatch.setattr(S, "RESORT_EVERY", 3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        bcs = bc_mod.build_boundary_conditions(specs, {"substep_dt": DT}, x0, device=dev)
+        before = (transfer.P2G_LAUNCHES, transfer.G2P_LAUNCHES)
+        fields = G2P_FIELDS + ("F", "stress", "mass", "vol", "selection", "mu", "lam",
+                               "material", "bulk", "yield_stress", "init_cov", "density", "Jp",
+                               "E", "nu")
+        out[str(dev)] = S.simulate_substeps(_to(st, dev, fields), cfg, bcs, 0.0, DT, 8)
+        launched = (transfer.P2G_LAUNCHES - before[0], transfer.G2P_LAUNCHES - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (8, 8))
+    got, want = out[str(cuda_device)], out["cpu"]
+    np.testing.assert_allclose(to_np(got.x), to_np(want.x), rtol=0, atol=1e-5)
+    w = to_np(want.v)
+    np.testing.assert_allclose(to_np(got.v), w, rtol=0, atol=1e-4 * np.abs(w).max())
+    inactive = to_np(st.selection) != 0
+    for k in ("x", "C", "F_trial"):
+        np.testing.assert_array_equal(to_np(getattr(got, k))[inactive],
+                                      to_np(getattr(st, k))[inactive], err_msg=k)
+
+
 def _p2g_binned_case(case, n_grid=24):
     """B1's cases: the random state of _state (every 13th inactive, 64
     particles hanging off the low faces and 64 off the high ones), the same
@@ -247,40 +328,18 @@ def test_blend_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 
 def _blend_modes(bins, dev, bg=0.3, keep_state=True):
-    """The shipped forward kernel and its ablation modes on the same inputs:
-    {mode: (img, trans, state)}."""
+    """The shipped forward kernel and its nolists ablation (no per-warp
+    entry lists) on the same inputs: {mode: (img, trans, state)}."""
     args = [t.to(dev) for t in (bins.feat, bins.idx, bins.starts, bins.counts)]
     return {m: gs_stream.blend_forward_variant(m, *args, bins.tx_n, bg, keep_state)
-            for m in ("shipped", "nolists", "previous")}
-
-
-@pytest.mark.parametrize("case", ["random", "tile_cap_truncated", "underflow", "tile_cap_1024"])
-@pytest.mark.parametrize("keep_state", [True, False])
-def test_blend_kernel_bitwise_equal_to_previous_schedule(cuda_device, case, keep_state):
-    """The redesigned forward (packed staging, per-warp entry lists, exact
-    early exit, half-tile blocks) gives the previous schedule's img, T and
-    state bit for bit: the same hits, the same float products, in the same
-    order."""
-    bins = {"random": lambda: _splat_bins(tile_cap=512),
-            "tile_cap_truncated": lambda: _splat_bins(tile_cap=128),
-            "underflow": _underflow_bins,
-            "tile_cap_1024": lambda: _splat_bins(n=20000, tile_cap=1024)}[case]()
-    if case == "tile_cap_1024":
-        assert int(bins.counts.max()) == 1024             # a tile at tile_cap
-    out = _blend_modes(bins, cuda_device, keep_state=keep_state)
-    prev = out["previous"]
-    for mode in ("shipped", "nolists"):
-        for k, (g, w) in enumerate(zip(out[mode], prev)):
-            assert (g is None and w is None) or torch.equal(g, w), (mode, k)
-    if case == "underflow":
-        assert float(prev[1].min()) == 0.0                 # the early exit had work to skip
+            for m in ("shipped", "nolists")}
 
 
 def test_blend_kernel_all_opaque_tile_and_a_full_tile(cuda_device):
     """One tile under 300 opaque splats (T reaches exactly 0 at every pixel
     after ~25: the block stops early) and one at tile_cap 1024 of faint
-    ones: both against the plain version (atol 1e-4) and bitwise against
-    the previous schedule."""
+    ones: both against the plain version (atol 1e-4), and the per-warp
+    lists drop no hit (bitwise against the nolists ablation)."""
     rng = np.random.default_rng(4)
     n_opaque, n_faint = 300, 1024
     feat = np.zeros((n_opaque + n_faint, 9), np.float32)
@@ -303,12 +362,12 @@ def test_blend_kernel_all_opaque_tile_and_a_full_tile(cuda_device):
     assert float(trans[:, :16].max()) == 0.0 and float(trans[:, 16:].min()) < 0.5
     out = _blend_modes(bins, cuda_device)
     for k in range(3):
-        assert torch.equal(out["shipped"][k], out["previous"][k]), k
+        assert torch.equal(out["shipped"][k], out["nolists"][k]), k
 
 
 def test_blend_kernel_nan_opacity_and_conic(cuda_device):
     """A NaN opacity or a NaN conic fails the gate, as in the plain version:
-    the image matches it (atol 1e-4) and the previous schedule bit for bit."""
+    the image matches it (atol 1e-4) and the nolists ablation bit for bit."""
     bins = _splat_bins(n=600, tile_cap=512)
     feat = bins.feat.clone()
     busy = torch.argsort(bins.counts, descending=True)[:2]
@@ -322,7 +381,7 @@ def test_blend_kernel_nan_opacity_and_conic(cuda_device):
     np.testing.assert_allclose(to_np(trans), to_np(want_trans), atol=1e-4)
     out = _blend_modes(nan_bins, cuda_device)
     for k in range(3):
-        assert torch.equal(out["shipped"][k], out["previous"][k]), k
+        assert torch.equal(out["shipped"][k], out["nolists"][k]), k
 
 
 def _cotangents(bins, seed=0):
@@ -548,13 +607,12 @@ def _fused_order(st, cfg, order):
     return st
 
 
-@pytest.mark.parametrize("schedule", ["run_sums", "atomics"])
 @pytest.mark.parametrize("order", ["given", "cell_sorted", "drifted"])
-def test_fused_substep_kernel_in_three_orders(cuda_device, order, schedule):
+def test_fused_substep_kernel_in_three_orders(cuda_device, order):
     """B6 on particles in the given order, sorted by cell and in a cell order
-    gone stale, and the previous (108-atomic) splat in the same orders:
-    grid and particle fields by B6's criterion against the plain version;
-    the substep without its splat writes the same particle fields."""
+    gone stale: grid and particle fields by B6's criterion against the
+    plain version; the substep without its splat writes the same particle
+    fields."""
     st, cfg, grid_v = _fused_case((0, 1, 2, 3, 5, 6), True)
     st = _fused_order(st, cfg, order)
     want = _to(st, "cpu", fs.UPDATED_FIELDS)
@@ -562,13 +620,8 @@ def test_fused_substep_kernel_in_three_orders(cuda_device, order, schedule):
     fields = fs.UPDATED_FIELDS + ("mass", "vol", "material", "bulk", "selection")
     got = _to(st, cuda_device, fields)
     before = fs.FUSED_LAUNCHES
-    if schedule == "run_sums":
-        grid_got = fs.fused_substep(got, grid_v.to(cuda_device), cfg, DT, got.selection == 0)
-        assert fs.FUSED_LAUNCHES == before + 1
-    else:
-        grid_got = fs.fused_substep_variant(schedule, got, grid_v.to(cuda_device), cfg, DT,
-                                            got.selection == 0)
-        assert fs.FUSED_LAUNCHES == before
+    grid_got = fs.fused_substep(got, grid_v.to(cuda_device), cfg, DT, got.selection == 0)
+    assert fs.FUSED_LAUNCHES == before + 1
     _assert_fused_close(got, grid_got, want, grid_want)
     bare = _to(st, cuda_device, fields)
     assert fs.fused_substep_variant("nosplat", bare, grid_v.to(cuda_device), cfg, DT,
@@ -663,6 +716,26 @@ def test_take_along_axis_kernel_matches_plain(cuda_device, axis, case):
     assert gather.LAUNCHES[axis] == before + 1
     np.testing.assert_array_equal(to_np(got), to_np(want))
     np.testing.assert_array_equal(to_np(got), np.take_along_axis(to_np(table), to_np(idx), axis))
+
+
+@pytest.mark.parametrize("t", [1, 7, 8192])
+@pytest.mark.parametrize("l", [1, 3, 127, 128, 129, 4096])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_axis_kernel_at_every_width(cuda_device, axis, l, t):
+    """Exact against the plain version on the card at row lengths that take
+    the vector path (L % 4 == 0) and the scalar one, and at 1, 7 and 8192
+    rows; at L = 128 also from a table 4 bytes off 16-byte alignment (the
+    scalar path)."""
+    table, idx, _ = p2.make_inputs(axis, t, l, seed=l + t, device=cuda_device)
+    cases = [table]
+    if l == 128:
+        flat = torch.empty(t * l + 1, device=cuda_device)
+        cases.append(flat[1:].view(t, l).copy_(table))
+    for tab in cases:
+        before = gather.LAUNCHES[axis]
+        got = gather.take_along_axis(tab, idx, axis)
+        assert gather.LAUNCHES[axis] == before + 1
+        assert torch.equal(got, gather.take_along_axis_plain(tab, idx, axis))
 
 
 def test_take_along_axis_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
