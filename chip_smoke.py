@@ -13,8 +13,8 @@ Phases (any failure exits non-zero):
   3. kernels  — P2G (B1: bin keys, torch.sort, binned splat) vs its plain
                 version in three cases (the slice's state: 100k particles,
                 n_grid 50; the same sorted by cell; P1's 100k particles at
-                ~45 a cell), each with its device time, the share of the
-                sort and the unbinned splat's time; G2P (B2) vs its plain
+                ~45 a cell), each with its device time and the share of
+                the sort; G2P (B2) vs its plain
                 version on the slice's state in three orders (as given,
                 sorted by cell as the unfused frame keeps it, and a cell
                 order left stale by 100 unfused substeps), each with its
@@ -45,11 +45,13 @@ Phases (any failure exits non-zero):
                 probe_kernel_ablation (P1: four P2G variants x two particle
                 orders, 100k particles, n_grid 50) and probe_vmem_gather (P2:
                 take_along_axis on both axes, 8192 x 128), their launch
-                counts, then each P1 variant against its plain version in
-                both orders and each gather axis exactly against its plain
-                version, with plain and torch.gather timings and the unbinned
-                splat's time attributed to atomics, weight math and
-                load/launch
+                counts, then each P1 variant (each behind B1's keys and
+                sort) against its plain version in both orders and each
+                gather axis exactly against its plain version, with plain
+                and torch.gather timings; P1 full's time beside B1's device
+                time on the same particles from phase 3, and B1's time
+                attributed to atomics, weight math, load/launch and the
+                keys+sort
   5. train    — 3DGS training through train_gaussian_splatting: 12 views of
                 the seeded 100k-gaussian model rendered at 800x800 with the
                 port's forward and written as PNGs + transforms.json; 100k
@@ -80,6 +82,21 @@ Phases (any failure exits non-zero):
                     the filled count must be positive;
                 each path's kernel launch counts must equal its substeps
                 (and, in GS mode, its frames)
+  7. voxelize — a seeded MXU NerfField (its density fitted on the card in
+                plain PyTorch, 120 Adam steps, to a ball of radius 29/64) and a
+                768-wide FeatureField saved with save_field_checkpoint, then
+                pipeline.generate_voxels at 64^3 with the config's batch
+                size -> generate_neural_segmentation on the grid it left on
+                the device -> 1 point-cloud frame x 400 substeps of the tree
+                config; the voxelizer's timings, the occupied voxels and the
+                U-Net stage's seconds; the device grid equals the npy
+                bitwise, the mask equals create_occupancy_mask on the CPU
+                bit for bit, and the features at 1,000 seeded voxels agree
+                with the CPU field within a float16 ulp; then a seeded f3rm
+                step-0.ckpt (F3RM feature field + nerfacto mlp_base at
+                max_res 2048) through load_f3rm_checkpoint and
+                TcnnFieldAdapter over the 64^3 grid in batches of 4096,
+                1,000 points against the CPU within 1e-5 of the largest value
 The line before the last is the kernel JSON (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs,
@@ -121,9 +138,10 @@ KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward", "fused_substep") + PRO
 # plain version rounds each op
 P2G_RTOL, G2P_RTOL = 1e-5, 1e-5
 # the P1 variants against their plain versions, relative to the largest
-# |value|: full and noweights splat by atomics (P2G_RTOL); noatomics sums its
-# 27 nodes in registers in another order than the plain sum and contracts
-# multiply-adds; minimal adds 26 floats in the plain version's order
+# |value|: full and noweights splat by atomics (P2G_RTOL); noatomics sums a
+# run's lanes and then its nodes, the plain version each particle's nodes and
+# then the run's particles, and the kernel contracts multiply-adds; minimal
+# adds 26 floats in the plain version's order
 PROBE_RTOL = {"full": P2G_RTOL, "noweights": P2G_RTOL, "noatomics": 1e-5, "minimal": 1e-6}
 # absolute, on colour and T in [0, 1]: the kernel's sequential product
 # against the plain version's log-domain chunked product, over <= 512 terms
@@ -165,9 +183,18 @@ HBM_BPS, F32_OPS = 3.35e12, 67e12
 G2P_OPS, COV_OPS, P2G_OPS, SVD3_OPS, RETURN_MAP_OPS = 1638, 63, 1830, 1292, 120
 STRESS_OPS = {0: 155, 1: 134, 2: 134, 3: 134, 5: 155, 6: 38}   # others: 18
 # P1 variants a particle: noweights the base cell 9, damping and stress 54,
-# one node's contribution 43 (every node's is the same) and 108 atomics;
-# noatomics as P2G (4 register adds a node for the 4 atomics); minimal 25 adds
+# one node's contribution 43 (every node's is the same) and its 108 values
+# added into the grid; noatomics as P2G (a run's sums kept in registers in
+# place of its atomics); minimal 25 adds
 PROBE_OPS = {"full": P2G_OPS, "noweights": 214, "noatomics": P2G_OPS, "minimal": 25}
+# phase 7: the field's density fit (steps of Adam over 65,536 of the 64^3
+# grid's points; host-bound at ~0.1 s a step on the card, and 60 steps
+# already put 101,093 voxels of the ball's 101,769 over the threshold on
+# the CPU) and the voxels its mask must hold at 64^3 (a ball of radius
+# 29/64 holds ~102k); the f3rm query's tolerance, relative to the largest
+# |feature|: float32 sums of the card's and the CPU's matmuls in another
+# order
+VOX_FIT_STEPS, VOX_MASK_RANGE, F3RM_RTOL = 120, (50_000, 150_000), 1e-5
 # a (pixel, splat) pair of the blend: offsets, conic power, exp, alpha and its
 # gate (16), as every pair evaluates them; the blend of a hit is not counted
 BLEND_PAIR_OPS = 16
@@ -229,6 +256,16 @@ def _counts(**kw) -> dict:
     return {k: kw.get(k, 0) for k in KERNELS}
 
 
+def _smi() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
@@ -238,12 +275,7 @@ def phase_device():
                 "gather.cu", "mpm.cuh"):
         if not (HERE / "pixie_tpu_torch" / "csrc" / src).exists():
             fail(f"pixie_tpu_torch sources not found beside {Path(__file__).name}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(f"nvidia-smi: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    print(f"nvidia-smi: {_smi()}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
@@ -308,11 +340,9 @@ def _p2g_case(dev, label: str, args: tuple, cfg, dt, reps: int = 30) -> dict:
     input: the error and grid-mass check, the wrapper's time (CUDA events
     around each call, as every phase-3 row), its device time and that of
     torch.sort of its keys (a sleep kernel queued ahead, scripts/timing.py),
-    and the device time of the unbinned splat (P1's full) on the same
-    inputs, in the same call."""
+    and its host time a call."""
     import torch
 
-    from pixie_tpu_torch.ops import probe_ablation as pa
     from pixie_tpu_torch.ops import transfer
     from pixie_tpu_torch.scripts.timing import time_calls
 
@@ -353,14 +383,11 @@ def _p2g_case(dev, label: str, args: tuple, cfg, dt, reps: int = 30) -> dict:
     row = {"max_abs_err": err, "ms": cuda_ms(lambda: transfer.p2g(*args, cfg, dt), reps=reps),
            "device_ms": device_ms(lambda: transfer.p2g(*args, cfg, dt)),
            "sort_ms": device_ms(lambda: torch.sort(keys)),
-           "unbinned_ms": device_ms(lambda: pa.p2g_variant("full", *args, cfg, dt)),
-           "host_ms": host_ms(lambda: transfer.p2g(*args, cfg, dt)),
-           "unbinned_host_ms": host_ms(lambda: pa.p2g_variant("full", *args, cfg, dt))}
+           "host_ms": host_ms(lambda: transfer.p2g(*args, cfg, dt))}
     print(f"p2g ({label}): wrapper {row['ms']:.4f} ms (CUDA events around the call), device "
           f"{row['device_ms']:.4f} ms, of which torch.sort of the keys {row['sort_ms']:.4f} ms "
-          f"(share {row['sort_ms'] / row['device_ms']:.3f}); the unbinned splat (P1 full) "
-          f"{row['unbinned_ms']:.4f} ms device (medians of {reps}); host time a call "
-          f"{row['host_ms']:.4f} ms (unbinned {row['unbinned_host_ms']:.4f})", flush=True)
+          f"(share {row['sort_ms'] / row['device_ms']:.3f}) (medians of {reps}); host time a "
+          f"call {row['host_ms']:.4f} ms", flush=True)
     return row
 
 
@@ -1077,10 +1104,12 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
             "library_ms": None, "ablation_ms": ablation, "forward_ms": fwd}
 
 
-def phase_probes(dev, n: int = N_PARTICLES, t: int = 8192, l: int = 128) -> tuple[dict, dict]:
+def phase_probes(dev, b1_ms: float | None = None, n: int = N_PARTICLES, t: int = 8192,
+                 l: int = 128) -> tuple[dict, dict]:
     """The probe entry points P1 and P2 at full width, their launch counts,
-    then each kernel against its plain version on the same inputs.  Returns
-    (kernel rows, the probe path's launches)."""
+    then each kernel against its plain version on the same inputs; P1 full's
+    time beside ``b1_ms``, B1's device time on P1's particles from phase 3.
+    Returns (kernel rows, the probe path's launches)."""
     import torch
 
     from pixie_tpu_torch.ops import gather, probe_ablation as pa
@@ -1129,11 +1158,19 @@ def phase_probes(dev, n: int = N_PARTICLES, t: int = 8192, l: int = 128) -> tupl
                       f"{row['ms_cell_sorted']:.4f}), plain {p_ms:.4f} ms (median of 10), bound "
                       f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
     for order in p1.ORDERS:
-        ms = {m: p1_ms[m][order] for m in pa.MODES}
+        ms = {m: p1_ms[m][order] for m in (*pa.MODES, "keys_sort")}
         print(f"P2G attribution ({order}, {n} particles): full {ms['full']:.4f} ms; atomics "
               f"~ full - noatomics = {ms['full'] - ms['noatomics']:.4f} ms; weight math ~ full - "
               f"noweights = {ms['full'] - ms['noweights']:.4f} ms; load/launch ~ minimal = "
-              f"{ms['minimal']:.4f} ms", flush=True)
+              f"{ms['minimal']:.4f} ms; keys+sort {ms['keys_sort']:.4f} ms (share of full "
+              f"{ms['keys_sort'] / ms['full']:.3f})", flush=True)
+        rows["probe_p2g_full"][f"keys_sort_ms_{order}"] = ms["keys_sort"]
+    if b1_ms is not None:
+        full = rows["probe_p2g_full"]
+        full["b1_device_ms"] = b1_ms
+        print(f"P1 full {full['ms']:.4f} ms (generated order; cell-sorted "
+              f"{full['ms_cell_sorted']:.4f}) against B1's device time on P1's particles in "
+              f"phase 3, {b1_ms:.4f} ms: ratio {full['ms'] / b1_ms:.3f}", flush=True)
 
     for axis in (0, 1):
         table, idx, _ = p2.make_inputs(axis, t, l, device=dev)
@@ -1246,9 +1283,6 @@ def phase_train(dev, root: Path, n_gaussians: int = N_GAUSSIANS, res: int = RES,
 def _make_object(root: Path, d: int, fc: int, model_kwargs: dict):
     """Seeded synthetic object and U-Net checkpoints (ball of radius 29/64 d)."""
     import numpy as np
-    import torch
-
-    from pixie_tpu_torch.models.unet3d import RegressionUNet, SegmentationUNet, seeded_state_dict
 
     render = root / "render_outputs" / "smokeobj"
     render.mkdir(parents=True)
@@ -1262,6 +1296,17 @@ def _make_object(root: Path, d: int, fc: int, model_kwargs: dict):
     np.save(render / "clip_features_mask.npy", mask)
     np.savez(render / "clip_features.npz", min_bounds=np.full(3, -0.5, np.float32),
              max_bounds=np.full(3, 0.5, np.float32), grid_shape=np.array([d, d, d]))
+    _unet_checkpoints(root, d, fc, model_kwargs)
+    print(f"object: {d}^3 grid, {int(mask.sum())} occupied voxels, {fc} float16 channels")
+    return render, feats, mask
+
+
+def _unet_checkpoints(root: Path, d: int, fc: int, model_kwargs: dict) -> None:
+    """Seeded U-Net checkpoints in root / checkpoints_{discrete,continuous}."""
+    import torch
+
+    from pixie_tpu_torch.models.unet3d import RegressionUNet, SegmentationUNet, seeded_state_dict
+
     kw = dict(feature_channels=fc, grid_size=d, **model_kwargs)
     for i, (name, model, scale) in enumerate((
             ("discrete", SegmentationUNet(num_classes=8, **kw), 1.0),
@@ -1272,8 +1317,6 @@ def _make_object(root: Path, d: int, fc: int, model_kwargs: dict):
         ckpt.mkdir()
         torch.save({"model_state_dict": seeded_state_dict(model, seed=5 + i, head_scale=scale)},
                    ckpt / "epoch_0.pth")
-    print(f"object: {d}^3 grid, {int(mask.sum())} occupied voxels, {fc} float16 channels")
-    return render, feats, mask
 
 
 def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dict | None = None,
@@ -1549,6 +1592,229 @@ def _check_fused_launches(mode: str, info: dict, launches: dict, n_frames: int,
         fail(f"{mode} fused launches {launches} != {want}")
 
 
+def _seed_field(module, gen, table_scale: float) -> None:
+    """Parameters from ``gen``: hash tables U(0, table_scale), weights
+    N(0, 1/fan_in), biases 0."""
+    import torch
+
+    with torch.no_grad():
+        for name, prm in module.named_parameters():
+            if name.endswith("table"):
+                prm.copy_(torch.rand(prm.shape, generator=gen) * table_scale)
+            elif name.endswith("weight"):
+                prm.copy_(torch.randn(prm.shape, generator=gen) / prm.shape[1] ** 0.5)
+            else:
+                prm.zero_()
+
+
+def _fit_density(nerf, pts01, inside, steps: int, batch: int = 65536) -> float:
+    """Adam on the NerfField's log density (clip(h - 1, -15, 15)) toward 4
+    inside the ball and -6 outside, ``batch`` seeded grid points a step, in
+    plain PyTorch; returns the last loss."""
+    import torch
+
+    target = torch.where(inside, 4.0, -6.0)
+    gen = torch.Generator(device=pts01.device).manual_seed(1)
+    opt = torch.optim.Adam(nerf.parameters(), lr=1e-2)
+    for _ in range(steps):
+        sel = torch.randint(len(pts01), (min(batch, len(pts01)),), generator=gen,
+                            device=pts01.device)
+        opt.zero_grad(set_to_none=True)
+        loss = ((torch.log(nerf(pts01[sel], None, True)[:, 0]) - target[sel]) ** 2).mean()
+        loss.backward()
+        opt.step()
+    return float(loss.detach())
+
+
+def _write_f3rm_ckpt(path: Path, seed: int) -> None:
+    """A seeded nerfstudio/f3rm step-*.ckpt: the F3RM feature field and a
+    nerfacto mlp_base at max_res 2048 as flat [network | encoding] buffers,
+    the colour head and an appearance embedding, under the keys
+    find_tcnn_buffers reads."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch.recon import tcnn_compat as tc
+
+    rng = np.random.default_rng(seed)
+
+    def buffer(n_net, n_enc):
+        return torch.as_tensor(np.concatenate([
+            rng.normal(0.0, 0.3, n_net).astype(np.float32),
+            rng.uniform(-0.5, 0.5, n_enc).astype(np.float32)]))
+
+    base = tc.nerfacto_density_field(max_res=2048)
+    torch.save({"pipeline": {
+        "_model.feature_field.field.params": buffer(tc.F3RM_MLP.n_params, tc.F3RM_GRID.n_params),
+        "_model.field.mlp_base.params": buffer(base.mlp.config.n_params,
+                                               base.grid.config.n_params),
+        "_model.field.mlp_head.params": torch.as_tensor(
+            rng.normal(0.0, 0.3, tc.NERFACTO_HEAD_MLP.n_params).astype(np.float32)),
+        "_model.field.embedding_appearance.embedding.weight": torch.as_tensor(
+            rng.normal(0.0, 0.5, (12, 32)).astype(np.float32))}, "step": 0}, path)
+
+
+def _fp16_within_ulp(got, want) -> int:
+    """How many float16 values differ by more than one float16 ulp of the
+    larger of the two (near zero: two float32 ulps of the largest |want|)."""
+    import numpy as np
+
+    g, w = got.astype(np.float32), want.astype(np.float32)
+    ulp = np.spacing(np.maximum(np.abs(got), np.abs(want))).astype(np.float32)
+    return int((np.abs(g - w) > ulp + 2.0 ** -22 * np.abs(w).max()).sum())
+
+
+def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = None,
+                   fit_steps: int = VOX_FIT_STEPS, n_check: int = 1000) -> dict:
+    """The voxelizer stage from a field checkpoint through the U-Nets, the
+    map and one point-cloud frame, then the f3rm checkpoint's grid query.
+    Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.config import compose
+    from pixie_tpu_torch.recon import tcnn_compat as tc
+    from pixie_tpu_torch.recon.field import FeatureField, NerfField
+    from pixie_tpu_torch.recon.field_adapter import load_field_adapter, use_fp32_matmuls
+    from pixie_tpu_torch.recon.train_field import save_field_checkpoint
+    from pixie_tpu_torch.utils.io import read_ply
+    from pixie_tpu_torch.voxel.voxelize import (
+        create_occupancy_mask, dense_voxel_grid, pack_rows,
+    )
+
+    model_kwargs = model_kwargs or {}
+    vc = compose().voxelization
+    lo_b, hi_b = vc.scene_bounds.x_bound
+    h = (hi_b - lo_b) / d
+    grid = dense_voxel_grid((lo_b,) * 3, (hi_b,) * 3, h)
+    flat = grid.reshape(-1, 3)
+    tree_cfg = HERE / "config" / "objaverse" / "custom_tree_config.json"
+    mask_range = tuple(int(v * (d / 64) ** 3) for v in VOX_MASK_RANGE)
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="pixie_smoke_vox_") as tmp:
+        root = Path(tmp)
+        # 1. a seeded field, its density fitted to the ball on the card
+        t0 = time.time()
+        use_fp32_matmuls(dev)
+        gen = torch.Generator().manual_seed(0)
+        nerf, feat = NerfField(), FeatureField(feature_dim=fc)
+        _seed_field(nerf, gen, 2e-4)
+        _seed_field(feat, gen, 1.0)
+        nerf.to(dev)
+        pts01 = torch.as_tensor(flat * 0.5 + 0.5, device=dev)
+        inside = torch.as_tensor(np.linalg.norm(flat, axis=1) < 29.0 / 64.0, device=dev)
+        loss = _fit_density(nerf, pts01, inside, fit_steps)
+        with torch.no_grad():
+            alpha = 1.0 - torch.exp(-nerf(pts01, None, True)[:, 0] * np.float32(h))
+        n_alpha = int((alpha > vc.alpha_threshold_for_mask).sum())
+        torch.cuda.synchronize()
+        print(f"voxelize: field fitted in {time.time() - t0:.2f} s ({fit_steps} Adam steps, "
+              f"{min(65536, len(flat))} of {len(flat)} points a step, loss {loss:.4f}); {n_alpha} "
+              f"voxels over the "
+              f"alpha threshold (ball {int(inside.sum())})", flush=True)
+        if not mask_range[0] <= n_alpha <= mask_range[1]:
+            fail(f"the fitted density holds {n_alpha} voxels, outside {mask_range}")
+        nerf_out = root / "f3rm"
+        save_field_checkpoint(nerf_out, {"nerf": nerf, "feat": feat}, feature_dim=fc)
+        del nerf, pts01, alpha
+        _unet_checkpoints(root, d, fc, model_kwargs)
+
+        # 2. the stages: voxelize -> U-Nets on the device grid -> map -> MPM
+        _reset_counts()
+        render = root / "render_outputs" / "smokeobj"
+        t0 = time.time()
+        vox = pipeline.generate_voxels(nerf_out, render, grid_size=d,
+                                       batch_size=vc.batch_size, device=dev)
+        vox_s = time.time() - t0
+        t0 = time.time()
+        ply = pipeline.generate_neural_segmentation(
+            render, root / "neural", "smokeobj", root / "checkpoints_discrete",
+            root / "checkpoints_continuous", grid_size=d, feature_channels=fc,
+            model_kwargs=model_kwargs, device=dev, features_dev=vox["features_dev"])
+        torch.cuda.synchronize()
+        seg_s = time.time() - t0
+        info = pipeline.run_physics_simulation(ply, tree_cfg, root / "sim", n_frames=1,
+                                               debug=True, device=dev)
+        launches = _read_counts()
+        timings = vox.pop("wait")()
+        mask = np.load(vox["mask"]) > 0.5
+        s = info["substeps_per_frame"]
+        print(f"voxelize: generate_voxels {vox_s:.2f} s, timings "
+              f"{ {k: round(v, 4) for k, v in timings.items()} }; {int(mask.sum())} occupied "
+              f"voxels of {d}^3; U-Net stage {seg_s:.2f} s; mpm (point cloud) "
+              f"{info['n_particles']} particles, 1 frame x {s} substeps, "
+              f"{info['substeps_per_sec']:.2f} substeps/s; launches {launches}", flush=True)
+        print(f"voxelize: nvidia-smi {_smi()}", flush=True)
+        if not mask_range[0] <= int(mask.sum()) <= mask_range[1]:
+            fail(f"the voxelizer's mask holds {int(mask.sum())} voxels, outside {mask_range}")
+        if launches != _counts(p2g=s, g2p=s):
+            fail(f"voxelize path launches {launches} != substeps run {s}")
+        verts = read_ply(ply)["vertex"]
+        if len(verts) != int(mask.sum()) or not info["final_state_finite"]:
+            fail(f"mapped_preds.ply has {len(verts)} vertices for a mask of {int(mask.sum())}, "
+                 f"or the rollout went non-finite")
+
+        # 3. the checks: device grid vs npy, mask vs the CPU, features vs the CPU
+        feats = np.load(vox["features"])
+        if not np.array_equal(vox["features_dev"].cpu().numpy().view(np.uint16),
+                              feats.view(np.uint16)):
+            fail("the device feature grid differs from clip_features_features.npy")
+        alphas, rgb = np.load(vox["alphas"]), np.load(vox["rgb"])
+        cpu_mask = create_occupancy_mask(grid, alphas, rgb, vc.alpha_threshold_for_mask,
+                                         vc.gray_threshold, voxel_size=h, device="cpu")
+        if not np.array_equal(cpu_mask, mask):
+            fail(f"the mask differs from create_occupancy_mask on the CPU in "
+                 f"{int((cpu_mask != mask).sum())} voxels")
+        sel = np.random.default_rng(1).choice(len(flat), n_check, replace=False)
+        cpu_field = load_field_adapter(nerf_out, device="cpu")
+        q = cpu_field.query(flat[sel])
+        f16, a16, _ = pack_rows(q["density"], q["feature"], torch.zeros((n_check, 3)),
+                                np.float32(h), vc.alpha_weighted)
+        keep = alphas.reshape(-1)[sel].astype(np.float32) > vc.alpha_threshold_for_mask
+        want = np.where(keep[:, None], f16.numpy(), np.float16(0.0))
+        bad = _fp16_within_ulp(feats.reshape(-1, fc)[sel], want)
+        bad_alpha = _fp16_within_ulp(alphas.reshape(-1)[sel], a16.numpy()[:, 0])
+        print(f"voxelize: device grid == npy bitwise; mask == CPU mask bit for bit; "
+              f"{n_check} seeded voxels ({int(keep.sum())} over the threshold): "
+              f"{bad} features and {bad_alpha} alphas beyond a float16 ulp of the CPU field",
+              flush=True)
+        if bad or bad_alpha:
+            fail("the voxelizer's features or alphas disagree with the CPU field")
+        del vox, feats
+
+        # 4. an f3rm checkpoint through TcnnFieldAdapter
+        ckpt = root / "step-0.ckpt"
+        _write_f3rm_ckpt(ckpt, seed=3)
+        t0 = time.time()
+        fields = tc.load_f3rm_checkpoint(ckpt)
+        load_s = time.time() - t0
+        if set(fields) != {"feature_field", "mlp_base", "mlp_head", "appearance"}:
+            fail(f"load_f3rm_checkpoint found {sorted(fields)}")
+        adapter = tc.TcnnFieldAdapter(fields, device=dev)
+        out = torch.empty((len(flat), tc.F3RM_MLP.out_dim), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(0, len(flat), vc.batch_size):
+            out[i:i + vc.batch_size] = adapter.query(flat[i:i + vc.batch_size])["feature"]
+        torch.cuda.synchronize()
+        query_s = time.time() - t0
+        want = tc.TcnnFieldAdapter(tc.load_f3rm_checkpoint(ckpt), device="cpu").query(
+            flat[sel])["feature"].numpy()
+        got = out[torch.as_tensor(sel, device=dev)].cpu().numpy()
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"f3rm: step-0.ckpt loaded in {load_s:.2f} s; {d}^3 grid queried in batches of "
+              f"{vc.batch_size} in {query_s:.3f} s, features {tuple(out.shape)}; {n_check} "
+              f"points: max_abs_err {err:.3e} against the CPU (max |value| {scale:.3e}, tol "
+              f"{F3RM_RTOL * scale:.3e})", flush=True)
+        if tuple(out.shape) != (d ** 3, 768) or not bool(torch.isfinite(out).all()):
+            fail(f"f3rm grid features {tuple(out.shape)} not (d^3, 768) or not finite")
+        if not err <= F3RM_RTOL * scale:
+            fail("the f3rm field on the card disagrees with the CPU")
+    print(f"voxelize: phase 7 in {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -1564,11 +1830,12 @@ def main() -> int:
     kern["gs_blend_backward"] = phase_blend_backward(dev)
     # what training's launches of B3 run: tile_cap 1024, keeping the state
     kern["gs_blend"]["training_ms"] = kern["gs_blend_backward"].pop("forward_ms")
-    probe_rows, probe_launches = phase_probes(dev)
+    probe_rows, probe_launches = phase_probes(dev, kern["p2g"]["cases"]["P1 state"]["device_ms"])
     kern.update(probe_rows)
     with tempfile.TemporaryDirectory(prefix="pixie_smoke_train_") as tmp:
         paths = {"probes": probe_launches, "train": phase_train(dev, Path(tmp))}
         paths.update(phase_slice(dev, gs_dir=Path(tmp) / "gs"))
+    paths["voxelize"] = phase_voxelize(dev)
     print(f"launches by path: {paths}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pixie_tpu"))

@@ -50,9 +50,9 @@
 // as much as the run sums saved (0.1567 -> 0.0541 ms for the splat; 100k
 // particles, one chip_smoke.py run, NVIDIA H100 80GB HBM3, 700 W).
 //
-// Before the run sums B6 splatted with 108 float atomics a particle (mpm.cuh
-// p2g_particle<kP2GFull>, P1's `full`), 95 % of that splat's time by P1's
-// ablation; in the given order that kernel took 0.2640-0.3668 ms against
+// Before the run sums B6 splatted with 108 float atomics a particle (the
+// one-thread-per-particle splat that P1's `full` timed before P1 moved onto
+// B1's schedule), 95 % of that splat's time by P1's ablation; in the given order that kernel took 0.2640-0.3668 ms against
 // 0.1416-0.2303 for the run sums in a cell order (PERF.md), and it was
 // then deleted.  Schedules (template flag): kRunSums, shipped; kNoSplat,
 // phases 1-3 alone, which prices the gather and the constitutive math apart

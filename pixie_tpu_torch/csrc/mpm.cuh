@@ -7,9 +7,10 @@
 // Every function is a term-for-term port of the package's PyTorch code, so
 // the kernels compute what the plain versions compute:
 //   spline_weights   ops/transfer.py:_spline_weights
-//   splat_nodes,     ops/transfer.py:p2g_contributions (and the ablations
-//   p2g_nodes,       of ops/probe_ablation.py)
-//   p2g_particle
+//   splat_nodes,     ops/transfer.py:p2g_contributions (and the constant
+//   p2g_nodes        weights of ops/probe_ablation.py's noweights)
+//   p2g_binned_splat ops/transfer.py:p2g (B1's run-summed splat over the
+//                    sorted bin keys; P1's full and noweights)
 //   svd3             sim/svd3.py:svd3 (cyclic Jacobi on F^T F, sorting
 //                    network, Gram-Schmidt with cross completion, Warp's
 //                    sign convention; every threshold as written there)
@@ -66,22 +67,13 @@ __device__ __forceinline__ Spline spline_weights(const float* xp, float inv_dx) 
 // splat_nodes computes each in-grid node's contribution (with kAllNodes,
 // every node's) from values in registers, p2g_nodes from particle p's
 // arrays, and hands it to a sink, sink(gi, gj, gk, momentum x, y, z,
-// mass): B1 and B6 sum it over a run of lanes first (RunSink),
-// p2g_particle adds it into the global grid or registers.
-// p2g_particle<kP2GFull> is the one-thread-per-particle splat with 108
-// global atomics that B1 ran until it was binned; the other modes are the
-// ablations that the P1 probe times (probe_ablation.cu), each differing
-// from it only by what it removes:
-//   kP2GNoWeights  the per-node weight, weight gradient and APIC offset are
-//                  the constant kAblate (offset kAblate dx, gradient
-//                  kAblate inv_dx); the base cell still comes from x and
-//                  the same 108 atomics go to the same 27 nodes
-//   kP2GNoAtomics  every node's contribution computed as in full, summed in
-//                  registers, one 16-byte store of the sum into out (N, 4)
-//   kP2GMinimal    the particle's inputs loaded, folded into one sum in a
-//                  fixed order (x, v, C, stress, mass, vol) and stored into
-//                  out (N,)
-// An inactive particle splats nothing; in the modes that store, it stores 0.
+// mass): B1 and B6 sum it over a run of lanes first (RunSink).  The mode
+// is the P1 probe's (probe_ablation.cu): kP2GFull is the splat itself;
+// under kP2GNoWeights the per-node weight, weight gradient and APIC offset
+// are the constant kAblate (offset kAblate dx, gradient kAblate inv_dx),
+// the base cell still comes from x and every node still reaches the sink.
+// kP2GNoAtomics and kP2GMinimal name the probe's other two variants, which
+// change the sink (noatomics) or skip the node math (minimal).
 // ---------------------------------------------------------------------------
 enum P2GMode : int { kP2GFull = 0, kP2GNoWeights = 1, kP2GNoAtomics = 2, kP2GMinimal = 3 };
 constexpr float kAblate = 0.1f;
@@ -236,7 +228,7 @@ __device__ __forceinline__ bool in_grid(int gi, int gj, int gk, int n_grid) {
   return gi >= 0 && gi < n_grid && gj >= 0 && gj < n_grid && gk >= 0 && gk < n_grid;
 }
 
-// sink of splat_nodes<kP2GFull, true>: each node's four values summed over
+// sink of splat_nodes<kMode, true>: each node's four values summed over
 // the lane's run, added into the grid by the run's last lane where the node
 // is in the grid
 struct RunSink {
@@ -255,50 +247,42 @@ struct RunSink {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The binned splat of one lane (transfer.cu p2g_binned_kernel, and the P1
+// probe's full and noweights): lane q of the launch takes sorted position q
+// of the bin keys (transfer.cu p2g_keys_kernel, sorted by torch.sort); a
+// lane is live if its key names a bin, and then splats particle perm[q].
+// Each run of adjacent live lanes with one base cell sums its 27 nodes'
+// values with shuffles, and the run's last lane adds the sums into the
+// (G^3, 4) grid with one atomic per (in-grid node, component).  A warp with
+// no live lane returns at once: its lanes call no shuffle.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ bool sorted_lane_live(const int32_t* __restrict__ keys, int q, int n,
+                                                 int nbins, int hbits) {
+  return q < n && (keys[q] >> hbits) < nbins;
+}
+
+// the run of lane q's particle p: its cell label where live, a label of its
+// own where not
+__device__ __forceinline__ Run sorted_lane_run(bool live, int p, const float* __restrict__ x,
+                                               int lane, int n_grid, float inv_dx) {
+  return lane_run(live ? cell_label(spline_weights(x + 3 * p, inv_dx), n_grid) : -1 - lane, lane);
+}
+
 template <int kMode>
-__device__ __forceinline__ void p2g_particle(int p, const float* __restrict__ x,
-                                             const float* __restrict__ v,
-                                             const float* __restrict__ C,
-                                             const float* __restrict__ stress,
-                                             const float* __restrict__ mass,
-                                             const float* __restrict__ vol,
-                                             const uint8_t* __restrict__ active,
-                                             float* __restrict__ grid, float* __restrict__ out,
-                                             int n_grid, float dx, float inv_dx, float dt,
-                                             float rpic_damping) {
-  if (!active[p]) {
-    if constexpr (kMode == kP2GNoAtomics)
-      reinterpret_cast<float4*>(out)[p] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (kMode == kP2GMinimal) out[p] = 0.f;
-    return;
-  }
-  if constexpr (kMode == kP2GMinimal) {
-    float acc = x[3 * p];
-#pragma unroll
-    for (int k = 1; k < 3; ++k) acc += x[3 * p + k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) acc += v[3 * p + k];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) acc += C[9 * p + k];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) acc += stress[9 * p + k];
-    out[p] = (acc + mass[p]) + vol[p];
-  } else if constexpr (kMode == kP2GNoAtomics) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    p2g_nodes<kMode>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt, rpic_damping,
-                     [&](int, int, int, float mx, float my, float mz, float wm) {
-                       acc[0] += mx;
-                       acc[1] += my;
-                       acc[2] += mz;
-                       acc[3] += wm;
-                     });
-    reinterpret_cast<float4*>(out)[p] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
-    p2g_nodes<kMode>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt, rpic_damping,
-                     [&](int gi, int gj, int gk, float mx, float my, float mz, float wm) {
-                       atomic_add_node(grid, n_grid, gi, gj, gk, mx, my, mz, wm);
-                     });
-  }
+__device__ __forceinline__ void p2g_binned_splat(
+    const int32_t* __restrict__ keys, const int64_t* __restrict__ perm,
+    const float* __restrict__ x, const float* __restrict__ v, const float* __restrict__ C,
+    const float* __restrict__ stress, const float* __restrict__ mass,
+    const float* __restrict__ vol, float* __restrict__ grid, int q, int n, int n_grid,
+    int nbins, int hbits, float dx, float inv_dx, float dt, float rpic_damping) {
+  const int lane = threadIdx.x & 31;
+  const bool live = sorted_lane_live(keys, q, n, nbins, hbits);
+  if (!__any_sync(kFullMask, live)) return;
+  const int p = live ? static_cast<int>(perm[q]) : 0;
+  const Run run = sorted_lane_run(live, p, x, lane, n_grid, inv_dx);
+  p2g_nodes<kMode, true>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt, rpic_damping,
+                         RunSink{live, run, lane, n_grid, grid});
 }
 
 // ---------------------------------------------------------------------------

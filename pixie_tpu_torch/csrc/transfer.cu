@@ -7,7 +7,7 @@
 //
 // The arithmetic follows pixie_tpu/sim/solver.py (p2g :60-128, g2p :171-220)
 // term for term.  The B-spline stencil (spline_weights) is shared with
-// the fused substep, and the per-node splat math (p2g_nodes) with the P2G
+// the fused substep, and the binned splat (p2g_binned_splat) with the P2G
 // ablation probe (probe_ablation.cu), through mpm.cuh.
 
 #include <cuda_runtime.h>
@@ -31,8 +31,8 @@ using pixie::spline_weights;
 //
 // Bound: the work is 108 float adds a particle into a 2 MB grid (n_grid
 // 50) that stays in the 50 MB L2, so neither DRAM nor the arithmetic
-// bounds it.  The one-thread-per-particle splat (mpm.cuh p2g_particle, the
-// P1 probe's `full`) spent 95 % of its time in its 108 global atomics a
+// bounds it.  The one-thread-per-particle splat (P1's `full` until it was
+// redesigned on this schedule) spent 95 % of its time in its 108 global atomics a
 // particle (0.2143 of 0.2259 ms at 100k particles, NVIDIA H100 80GB HBM3,
 // 700 W), and sorting the particles by cell made it 22 % slower: lanes of a
 // warp then hit one address and the L2 serializes them.
@@ -50,8 +50,8 @@ using pixie::spline_weights;
 //   2. p2g_binned_kernel: block b takes sorted positions [256 b, 256 b +
 //      256), one particle a thread, so the lanes of a warp hold particles
 //      of few cells, each cell's lanes adjacent.
-//      Every lane computes its 27 nodes' values (mpm.cuh p2g_nodes, the
-//      same math as the unbinned splat); each run of lanes that share a
+//      Every lane computes its 27 nodes' values (mpm.cuh p2g_binned_splat
+//      through p2g_nodes); each run of lanes that share a
 //      base cell, and so all 27 nodes, sums them with 5 shuffles a value
 //      (an inclusive segmented scan), and the run's last lane adds the sums
 //      into the grid with one global atomic per (node, component), dropping
@@ -116,17 +116,9 @@ p2g_binned_kernel(const int32_t* __restrict__ keys, const int64_t* __restrict__ 
                   const float* __restrict__ mass, const float* __restrict__ vol,
                   float* __restrict__ grid, int n, int n_grid, int nb, int hbits, float dx,
                   float inv_dx, float dt, float rpic_damping) {
-  const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  const int nbins = nb * nb * nb;
-  const bool live = q < n && (keys[q] >> hbits) < nbins;
-  if (!__any_sync(kFull, live)) return;
-  const int p = live ? static_cast<int>(perm[q]) : 0;
-  const pixie::Run run = pixie::lane_run(
-      live ? pixie::cell_label(spline_weights(x + 3 * p, inv_dx), n_grid) : -1 - lane, lane);
-  pixie::p2g_nodes<pixie::kP2GFull, true>(p, x, v, C, stress, mass, vol, n_grid, dx, inv_dx, dt,
-                                          rpic_damping,
-                                          pixie::RunSink{live, run, lane, n_grid, grid});
+  pixie::p2g_binned_splat<pixie::kP2GFull>(keys, perm, x, v, C, stress, mass, vol, grid,
+                                           blockIdx.x * kThreads + threadIdx.x, n, n_grid,
+                                           nb * nb * nb, hbits, dx, inv_dx, dt, rpic_damping);
 }
 
 // ---------------------------------------------------------------------------

@@ -3,17 +3,22 @@
   train_gaussians              — the object's multi-view capture ->
       3DGS training -> gs/point_cloud/iteration_K/point_cloud.ply
       (pipeline.py:130-140)
-  generate_neural_segmentation — clip_features_{features,mask}.npy +
-      clip_features.npz -> both U-Nets -> sample_{k}_pred.npy ->
-      denormalization -> mapped_preds.ply  (pipeline.py:187-317)
+  generate_voxels              — the field checkpoint (f3rm/checkpoints/
+      field.pth) -> 64^3 feature grid + occupancy mask, the clip_features*
+      artifacts, and the feature grid left on the device (pipeline.py:143-172)
+  generate_neural_segmentation — the feature grid (on the device from
+      generate_voxels, else clip_features_features.npy) + mask + npz -> both
+      U-Nets -> sample_{k}_pred.npy -> denormalization -> mapped_preds.ply
+      (pipeline.py:187-317)
   run_physics_simulation       — mapped_preds.ply -> MPM rollout ->
       ply_files/frame_%04d.ply + sim_info.json  (pipeline.py:328-375)
 
 The stage functions take explicit arguments (no config tree needed);
 ``main(argv)`` composes the same ``key=value`` overrides as ``pipeline.py``
 through ``pixie_tpu_torch.config`` (over the shared YAML tree) and runs the
-three stages.  The Blender render stage that writes the capture, field
-training, the voxelizer and U-Net training are not in this port.
+stages, joining the voxelizer's feature write before it returns
+(pipeline.py:175-185, 408-410).  The Blender render stage that writes the
+capture, field training and U-Net training are not in this port.
 
 Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
 """
@@ -91,6 +96,47 @@ def train_gaussians(
     return train_gaussian_splatting(data_dir, out, iterations=iterations, device=device)
 
 
+def generate_voxels(
+    nerf_output: str | Path,
+    render_output: str | Path,
+    bounds=((-0.5, 0.5), (-0.5, 0.5), (-0.5, 0.5)),
+    grid_size: int = 64,
+    batch_size: int = 4096,
+    alpha_weighted: bool = True,
+    alpha_threshold_for_mask: float = 0.01,
+    gray_threshold: float = 0.05,
+    overwrite: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict | None:
+    """The field checkpoint of ``nerf_output`` -> the voxel artifacts of
+    ``render_output``; returns the voxelizer's path dict (with
+    ``features_dev`` and ``wait``: pass it to ``finish_voxel_fetch``), or
+    None when the features and mask exist and ``overwrite`` is off.
+    ``batch_size`` is the config tree's (voxelization.batch_size, 4096)."""
+    from pixie_tpu_torch.recon.field_adapter import load_field_adapter  # noqa: PLC0415
+    from pixie_tpu_torch.voxel.voxelize import extract_feature_voxel_grid  # noqa: PLC0415
+
+    art = voxel_artifact_paths(str(render_output))
+    if all(Path(art[k]).exists() for k in ("features", "mask")) and not overwrite:
+        logging.info("[voxels] artifacts exist, skipping")
+        return None
+    field = load_field_adapter(nerf_output, device=device)
+    return extract_feature_voxel_grid(
+        field, art["npz"], bounds=tuple(tuple(b) for b in bounds),
+        voxel_size=(bounds[0][1] - bounds[0][0]) / grid_size, batch_size=batch_size,
+        alpha_weighted=alpha_weighted, alpha_threshold_for_mask=alpha_threshold_for_mask,
+        gray_threshold_for_mask=gray_threshold, expected_grid=grid_size, device=device)
+
+
+def finish_voxel_fetch(vox: dict | None) -> None:
+    """Join the voxelizer's background feature write (once); call it before
+    anything reads clip_features_features.npy."""
+    if vox and "wait" in vox:
+        t = vox.pop("wait")()
+        logging.info("[voxels] feature npy written (fetch %.2fs, save %.2fs)",
+                     t.get("fetch_bg_s", 0.0), t.get("save_feat_s", 0.0))
+
+
 def generate_neural_segmentation(
     render_output: str | Path,
     neural_dir: str | Path,
@@ -106,8 +152,11 @@ def generate_neural_segmentation(
     model_kwargs: dict | None = None,
     overwrite: bool = False,
     device: str | torch.device = "cuda",
+    features_dev: torch.Tensor | None = None,
 ) -> Path:
-    """U-Net inference on the voxel grid -> ``mapped_preds.ply``; returns its path."""
+    """U-Net inference on the voxel grid -> ``mapped_preds.ply``; returns its
+    path.  ``features_dev``: the (D,D,D,C) grid ``generate_voxels`` left on
+    the device, used in place of the npy, which may still be being written."""
     render_output = Path(render_output)
     mapped_ply = render_output / f"sample_{sample_id}" / "mapped_preds.ply"
     if mapped_ply.exists() and not overwrite:
@@ -124,10 +173,10 @@ def generate_neural_segmentation(
             f"U-Net checkpoints not found under {seg_ckpt_dir} / {cont_ckpt_dir}")
 
     art = voxel_artifact_paths(str(render_output))
-    feats = np.load(art["features"])
+    feats = np.load(art["features"]) if features_dev is None else features_dev
     want = (grid_size,) * 3 + (feature_channels,)
-    if feats.shape != want:
-        raise ValueError(f"voxel grid {feats.shape} != {want} expected by the U-Net")
+    if tuple(feats.shape) != want:
+        raise ValueError(f"voxel grid {tuple(feats.shape)} != {want} expected by the U-Net")
     infer = CombinedInference(
         load_params(seg_ckpt), load_params(cont_ckpt), grid_size=grid_size,
         feature_channels=feature_channels, num_classes=num_classes,
@@ -178,7 +227,7 @@ def run_physics_simulation(
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
-    """``pipeline.py``'s 3DGS training and neural slice with its
+    """``pipeline.py``'s 3DGS training, voxelizer and neural slice with its
     ``key=value`` overrides."""
     from pixie_tpu_torch.config import compose  # noqa: PLC0415
     from pixie_tpu_torch.utils.paths import (  # noqa: PLC0415
@@ -199,6 +248,14 @@ def main(argv=None, device: str | torch.device = "cuda"):
     train_gaussians(paths["data_dir"], paths["gs_output"],
                     iterations=cfg.training_3d.gs_iterations,
                     overwrite=bool(cfg.overwrite), device=device)
+    vc = cfg.voxelization
+    b = vc.scene_bounds
+    vox = generate_voxels(
+        paths["nerf_output"], paths["render_output"],
+        bounds=(tuple(b.x_bound), tuple(b.y_bound), tuple(b.z_bound)),
+        grid_size=vc.grid_size, batch_size=vc.batch_size, alpha_weighted=vc.alpha_weighted,
+        alpha_threshold_for_mask=vc.alpha_threshold_for_mask, gray_threshold=vc.gray_threshold,
+        overwrite=bool(cfg.overwrite or cfg.overwrite_voxel), device=device)
     tr = cfg.training
     # the U-Net width of the config tree (defaults: the shipped nets)
     model_kwargs = dict(cond_dim=tr.cond_dim, model_channels=tr.training.unet_model_channels,
@@ -212,7 +269,8 @@ def main(argv=None, device: str | torch.device = "cuda"):
         sample_id=cfg.physics.sample_id, grid_size=tr.default_grid_size,
         feature_channels=tr.feature_channels, num_classes=tr.num_material_classes,
         background_id=tr.background_id, model_kwargs=model_kwargs,
-        overwrite=bool(cfg.overwrite), device=device)
+        overwrite=bool(cfg.overwrite), device=device,
+        features_dev=(vox or {}).get("features_dev"))
     # config resolution of pipeline.py:338-348
     if cfg.get("is_objaverse_object", True):
         sim_cfg = (Path(cfg.paths.physgaussian_config_dir) / "objaverse"
@@ -236,6 +294,8 @@ def main(argv=None, device: str | torch.device = "cuda"):
         render_img=bool(cfg.physics.get("render_img", True)) and has_gs,
         compile_video=bool(cfg.physics.get("compile_video", True)), white_bg=white_bg,
         overwrite=bool(cfg.overwrite), device=device)
+    # the feature npy may still be being written behind the later stages
+    finish_voxel_fetch(vox)
     logging.info("pipeline stages complete in %.1fs", time.time() - t0)
 
 

@@ -1,9 +1,14 @@
-"""Capture loading of the feature-field trainer (port of
-pixie_tpu/recon/train_field.py:83-145): ``load_blender_dataset`` and
-``load_dataset``, host numpy and PIL code copied unchanged apart from their
-imports.  The 3DGS trainer reads its captures through them.  The rest of
-``train_field.py`` is field training, which waits for the field-training
-slice (ROADMAP.md 'Next slices' (d)).
+"""Capture loading and the field checkpoint of the feature-field trainer
+(port of pixie_tpu/recon/train_field.py:83-145 and :450-468).
+
+``load_blender_dataset`` and ``load_dataset`` are host numpy and PIL code
+copied unchanged apart from their imports; the 3DGS trainer reads its
+captures through them.  ``save_field_checkpoint`` / ``load_field_checkpoint``
+write and read ``checkpoints/field.pth``, a torch state dict of ``nerf`` and
+``feat``, beside the JAX package's ``field_meta.json`` keys.  The JAX package
+writes an orbax directory ``checkpoints/field/`` instead, which this port
+does not read (``recon.field.state_dict_from_jax`` converts its parameters).
+Field training itself waits for the field-training slice.
 """
 
 from __future__ import annotations
@@ -12,6 +17,44 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
+from torch import nn
+
+FIELD_CKPT = Path("checkpoints") / "field.pth"
+
+
+def save_field_checkpoint(output_dir: str | Path, params: dict, feature_dim: int = 768,
+                          encoding: str = "mxu") -> Path:
+    """Write ``params`` ({"nerf": ..., "feat": ...}, each an ``nn.Module`` or
+    a state dict) to ``output_dir/checkpoints/field.pth`` and the meta
+    ``field_meta.json`` (feature_dim, with_features, encoding); returns the
+    checkpoint's path."""
+    path = Path(output_dir) / FIELD_CKPT
+    path.parent.mkdir(parents=True, exist_ok=True)
+    state = {}
+    for name, p in params.items():
+        sd = p.state_dict() if isinstance(p, nn.Module) else p
+        state[name] = {k: torch.as_tensor(v).detach().cpu() for k, v in sd.items()}
+    torch.save(state, path)
+    meta = {"feature_dim": feature_dim, "with_features": "feat" in params, "encoding": encoding}
+    (path.parent / "field_meta.json").write_text(json.dumps(meta))
+    return path
+
+
+def load_field_checkpoint(output_dir: str | Path) -> dict:
+    """{"nerf": state dict, "feat": state dict (if saved)} from
+    ``output_dir/checkpoints/field.pth``; raises FileNotFoundError where the
+    directory holds only the JAX package's orbax checkpoint."""
+    path = Path(output_dir) / FIELD_CKPT
+    if not path.exists():
+        orbax = path.parent / "field"
+        if orbax.is_dir():
+            raise FileNotFoundError(
+                f"{path} not found; {orbax} is an orbax checkpoint of the JAX package, which "
+                f"this port does not read (convert its params with "
+                f"pixie_tpu_torch.recon.field.state_dict_from_jax)")
+        raise FileNotFoundError(f"no field checkpoint at {path}")
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_blender_dataset(data_dir: str | Path, max_images: int | None = None):

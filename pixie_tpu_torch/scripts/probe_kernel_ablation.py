@@ -2,18 +2,24 @@
 
     python -m pixie_tpu_torch.scripts.probe_kernel_ablation [--device cuda|cpu]
 
-Times four variants of the shipped P2G splat (``csrc/transfer.cu``
-``p2g_kernel``) on the particle set of ``scripts/probe_kernel_ablation.py``:
-seed 0, 100,000 particles uniform in [0.75, 1.25]^3, n_grid 50, inv_dx 25;
-v, C and stress normal x 0.1, mass and vol |normal| x 0.1.
+Times four variants of the shipped P2G (B1: ``ops/transfer.py`` ``p2g``,
+its bin keys, ``torch.sort`` and the run-summed binned splat of
+``csrc/transfer.cu``) on the particle set of
+``scripts/probe_kernel_ablation.py``: seed 0, 100,000 particles uniform in
+[0.75, 1.25]^3, n_grid 50, inv_dx 25; v, C and stress normal x 0.1, mass and
+vol |normal| x 0.1.
 
-Variants (``ops/probe_ablation.py``, ``csrc/probe_ablation.cu``):
-  full       — shipped kernel
+Variants (``ops/probe_ablation.py``, ``csrc/probe_ablation.cu``), each behind
+B1's key kernel and sort:
+  full       — B1 itself
   noweights  — per-node weight, weight gradient and APIC offset replaced by
-               constants (the 108 atomics a particle kept)
-  noatomics  — weights kept, the atomics replaced by a sum in registers and
-               one 16-byte store a particle
-  minimal    — the particle's loads, one sum and one store: load and launch
+               constants (the runs and their atomics kept)
+  noatomics  — weights and run sums kept, each run's atomics replaced by a
+               sum in its last lane's registers and one 16-byte store
+  minimal    — the sorted schedule's loads, one sum and one store
+
+and, apart, the key kernel and ``torch.sort`` alone (``keys+sort``), the
+share of every variant's time that no ablation removes.
 
 Each runs in two particle orders: as generated (the order the rollout
 feeds the kernel) and sorted by base cell (the counterpart of the JAX
@@ -30,7 +36,7 @@ import statistics
 import numpy as np
 import torch
 
-from pixie_tpu_torch.ops.probe_ablation import MODES, p2g_variant
+from pixie_tpu_torch.ops.probe_ablation import MODES, p2g_variant, sorted_keys
 from pixie_tpu_torch.scripts.timing import time_calls
 from pixie_tpu_torch.sim.types import MPMConfig
 
@@ -73,7 +79,8 @@ def inputs(d: dict, order: str, cfg: MPMConfig, device) -> tuple:
 
 
 def main(device: str | torch.device = "cuda", n: int = N) -> dict:
-    """Times every variant in both orders; returns {mode: {order: ms}}."""
+    """Times every variant and the keys+sort in both orders; returns
+    {mode or "keys_sort": {order: ms}}."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("probe_kernel_ablation: no CUDA device (pass device='cpu')")
@@ -84,7 +91,7 @@ def main(device: str | torch.device = "cuda", n: int = N) -> dict:
     cells = np.unique(base_cells(d["x"], cfg))
     print(f"n_particles={n} n_grid={cfg.n_grid} inv_dx={cfg.inv_dx:g} "
           f"occupied_cells={len(cells)} ({n / len(cells):.1f} particles a cell)", flush=True)
-    out = {mode: {} for mode in MODES}
+    out = {mode: {} for mode in (*MODES, "keys_sort")}
     for order in ORDERS:
         args = inputs(d, order, cfg, dev)
         print(f"order: {order}", flush=True)
@@ -93,6 +100,10 @@ def main(device: str | torch.device = "cuda", n: int = N) -> dict:
                                warmup=WARMUP)
             out[mode][order] = statistics.median(times)
             print(f"p2g[{mode}]: {out[mode][order]:.4f} ms/call", flush=True)
+        times = time_calls(lambda: sorted_keys(args[0], args[6], cfg), [()] * REPS, dev,
+                           warmup=WARMUP)
+        out["keys_sort"][order] = statistics.median(times)
+        print(f"keys+sort: {out['keys_sort'][order]:.4f} ms/call", flush=True)
     return out
 
 

@@ -44,6 +44,35 @@ def knn(query: np.ndarray, ref: np.ndarray, k: int = 10, device="cpu"):
     return torch.cat(dists).cpu().numpy(), torch.cat(idxs).cpu().numpy()
 
 
+def knn_mean_dist(query: np.ndarray, ref: np.ndarray, k: int = 10, skip_self: bool = False,
+                  device="cpu") -> np.ndarray:
+    """(Q,) float32 mean distance of each query point to its k nearest
+    reference points (pixie_tpu/sim/material_field.py:111), on ``device`` in
+    query blocks.  ``skip_self`` drops the nearest one, the point itself
+    when query is ref (open3d's remove_statistical_outlier).
+
+    The distances are ``torch.cdist``'s direct differences, not its matrix
+    product form, and the mean is summed in float64: on lattice points, the
+    voxelizer's only caller, every distance is then exact and the mean the
+    same on every device."""
+    query = np.asarray(query, np.float32)
+    ref = np.asarray(ref, np.float32)
+    need = k + 1 if skip_self else k
+    if need > ref.shape[0]:
+        raise ValueError(f"k={k} (+self) exceeds reference count {ref.shape[0]}")
+    ref_t = torch.as_tensor(ref, device=device)
+    block = max(1, _KNN_BLOCK_ELEMS // max(ref.shape[0], 1))
+    means = []
+    for start in range(0, query.shape[0], block):
+        q = torch.as_tensor(query[start:start + block], device=device)
+        d = torch.cdist(q, ref_t, compute_mode="donot_use_mm_for_euclid_dist")
+        d = torch.topk(d, need, dim=1, largest=False, sorted=True).values
+        means.append((d[:, 1:] if skip_self else d).double().mean(1).float())
+    if not means:
+        return np.zeros(0, np.float32)
+    return torch.cat(means).cpu().numpy()
+
+
 def assign_from_neighbors(values: dict[str, np.ndarray], neighbor_idx: np.ndarray,
                           distances: np.ndarray, weighted: bool = False,
                           num_classes: int = 8):

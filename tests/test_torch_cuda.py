@@ -18,11 +18,15 @@ stress, mu, lam and the yield stress to the float32 ULP floor 6 * 1.2e-7 *
 scale (scale E for stress, the field's largest |value| otherwise), 90 % of
 entries within it and all within 100 times it (JAX's fused-vs-two-kernel
 criterion, tests/test_fast_solver.py:282-294).  The P2G ablation probe's
-variants (P1) are held as chip_smoke.py holds them: full and noweights
-splat by atomics (1e-5 of the largest |grid|), noatomics sums its 27 nodes
-in another order (1e-5 of the largest |value|), minimal adds 26 floats in
-the plain version's order (1e-6).  The take_along_axis kernels (P2) copy
-values and agree exactly.  This file imports no JAX package module.
+variants (P1), each behind B1's keys and sort, are held as chip_smoke.py
+holds them: full and noweights splat by run atomics (1e-5 of the largest
+|grid|), noatomics sums a run's nodes in another order than the plain
+version (1e-5 of the largest |value|), minimal adds 26 floats in the plain
+version's order (1e-6).  The take_along_axis kernels (P2) copy values and
+agree exactly.  The voxelizer stage (plain PyTorch) is held against the
+CPU: the occupancy mask bit for bit, float16 artifacts within one ulp,
+float32 field outputs within 1e-5 of the largest value.  This file imports
+no JAX package module.
 """
 
 import numpy as np
@@ -751,3 +755,130 @@ def test_take_along_axis_wrapper_rejects_what_the_kernels_do_not_take(cuda_devic
     with pytest.raises(ValueError, match="at most"):
         wide = torch.zeros((2, gather.MAX_AXIS1_ROW + 1), device=cuda_device)
         gather.take_along_axis(wide, torch.zeros_like(wide, dtype=torch.int32), 1)
+
+
+def test_probe_full_is_b1(cuda_device):
+    """P1's full runs B1's keys, sort and splat: its grid agrees with
+    transfer.p2g on the same particles to 1e-5 of the largest |grid| (the
+    run atomics land in run-dependent order)."""
+    cfg = p1.config()
+    args = p1.inputs(p1.make_particles(20_000, seed=3), "generated", cfg, cuda_device)
+    got = to_np(probe_ablation.p2g_variant("full", *args, cfg, p1.DT))
+    want = to_np(transfer.p2g(*args, cfg, p1.DT))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# -- the voxelizer stage on the card: plain PyTorch, held against the CPU ----------
+
+def _seeded_field_sds(fc=32, density_bias=-1.0, seed=20):
+    """NerfField and FeatureField state dicts from numpy seeds: tables
+    U(0, 1), weights N(0, 0.3), biases N(0, 0.1); the density bias leaves
+    about a fifth of a 16^3 grid under the alpha threshold."""
+    from pixie_tpu_torch.recon.field import FeatureField, NerfField
+
+    rng = np.random.default_rng(seed)
+    sds = []
+    for module in (NerfField(), FeatureField(feature_dim=fc)):
+        sd = {}
+        for k, v in module.state_dict().items():
+            a = (rng.uniform(0.0, 1.0, v.shape) if k.endswith("table") else
+                 rng.normal(size=v.shape) * (0.3 if k.endswith("weight") else 0.1))
+            sd[k] = torch.as_tensor(a.astype(np.float32))
+        sds.append(sd)
+    sds[0]["density_mlp.out.bias"][0] = density_bias
+    return sds
+
+
+def test_field_adapter_on_cuda_matches_cpu(cuda_device):
+    """Density, features and rgb on the card against the CPU (TF32 off):
+    1e-5 of each one's largest |value| (float32 sums in another order)."""
+    from pixie_tpu_torch.recon.field_adapter import FieldAdapter
+
+    nsd, fsd = _seeded_field_sds()
+    pts = np.random.default_rng(1).uniform(-0.5, 0.5, (5000, 3)).astype(np.float32)
+    cpu = FieldAdapter(nsd, fsd, feature_dim=32, device="cpu")
+    gpu = FieldAdapter(nsd, fsd, feature_dim=32, device=cuda_device)
+    assert gpu.nerf.grid.table.is_cuda
+    want, got = cpu.query(pts), gpu.query(pts)
+    for key in ("density", "feature"):
+        w = to_np(want[key])
+        np.testing.assert_allclose(to_np(got[key]), w, rtol=0, atol=1e-5 * np.abs(w).max())
+    w = to_np(cpu.get_rgb(pts))
+    np.testing.assert_allclose(to_np(gpu.get_rgb(pts)), w, rtol=0, atol=1e-5)
+
+
+def test_extract_feature_voxel_grid_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """The whole stage at 16^3 on the card and on the CPU: the mask
+    identical, features and alphas within one float16 ulp (near zero two
+    float32 ulps of the largest |feature|), and the device grid equal to the
+    npy bit for bit."""
+    from pixie_tpu_torch.recon.field_adapter import FieldAdapter
+    from pixie_tpu_torch.voxel.voxelize import extract_feature_voxel_grid
+
+    nsd, fsd = _seeded_field_sds()
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda_device)):
+        out[name] = extract_feature_voxel_grid(
+            FieldAdapter(nsd, fsd, feature_dim=32, device=dev), tmp_path / name / "v.npz",
+            voxel_size=1 / 16, batch_size=1000, expected_grid=16, nb_neighbors=10, device=dev)
+        out[name]["wait"]()
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu["features_dev"].is_cuda
+    feats = np.load(gpu["features"])
+    np.testing.assert_array_equal(to_np(gpu["features_dev"]).view(np.uint16),
+                                  feats.view(np.uint16))
+    np.testing.assert_array_equal(np.load(gpu["mask"]), np.load(cpu["mask"]))
+    for key in ("features", "alphas", "rgb"):
+        g, w = np.load(gpu[key]), np.load(cpu[key])
+        ulp = np.spacing(np.maximum(np.abs(g), np.abs(w))).astype(np.float32)
+        slack = ulp + 2.0 ** -22 * np.abs(w.astype(np.float32)).max()
+        assert (np.abs(g.astype(np.float32) - w.astype(np.float32)) <= slack).all(), key
+
+
+def test_occupancy_mask_on_cuda_matches_cpu(cuda_device):
+    """The lattice kNN and DBSCAN convolutions through cuDNN, bit for bit
+    against the CPU on a seeded 48^3 scene (a ball with holes, a floating
+    cluster, isolated voxels), with and without TF32."""
+    from pixie_tpu_torch.voxel.voxelize import create_occupancy_mask, dense_voxel_grid
+
+    d = 48
+    rng = np.random.default_rng(4)
+    grid = dense_voxel_grid((-0.5,) * 3, (0.5,) * 3, 1.0 / d)
+    r = np.linalg.norm(grid, axis=-1)
+    alpha = np.where(r < 0.3, rng.uniform(0.2, 1.0, r.shape), 0.0)
+    alpha[rng.random(r.shape) < 0.15] = 0.0
+    alpha[(r > 0.42) & (rng.random(r.shape) < 0.002)] = 0.6
+    alpha[4:7, 4:7, 40:43] = 0.7
+    alphas = alpha[..., None].astype(np.float16)
+    rgb = rng.uniform(0.0, 1.0, grid.shape).astype(np.float16)
+    want = create_occupancy_mask(grid, alphas, rgb, voxel_size=1.0 / d, device="cpu")
+    assert 0 < want.sum() < (alpha > 0.01).sum()
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        for allow in (False, True):
+            torch.backends.cudnn.allow_tf32 = allow
+            got = create_occupancy_mask(grid, alphas, rgb, voxel_size=1.0 / d,
+                                        device=cuda_device)
+            np.testing.assert_array_equal(got, want)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_tcnn_network_on_cuda_matches_cpu(cuda_device):
+    """tcnn's hash grid + frequency encoding + padded MLP from one seeded flat
+    buffer, on the card against the CPU: 1e-5 of the largest |value|."""
+    from pixie_tpu_torch.recon import tcnn_compat as tc
+
+    grid = tc.TcnnGridConfig.from_min_max(6, 2, 12, 8, 256)
+    mlp = tc.TcnnMLPConfig(in_dim=12 + 3 * 2 * 3, out_dim=20, hidden=32, n_hidden_layers=2)
+    rng = np.random.default_rng(5)
+    flat = np.concatenate([rng.normal(0, 0.3, mlp.n_params),
+                           rng.uniform(-0.1, 0.1, grid.n_params)]).astype(np.float32)
+    net = tc.TcnnNetworkWithInputEncoding(grid, mlp, pe_n_freq=3)
+    net.load_state_dict(tc.split_tcnn_params(flat, grid, mlp))
+    x = torch.as_tensor(rng.uniform(0, 1, (4000, 3)).astype(np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        want = to_np(net(x))
+        got = to_np(net.to(cuda_device)(x.to(cuda_device)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())

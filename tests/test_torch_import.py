@@ -40,7 +40,10 @@ def test_module_list_covers_the_slice():
               "pixie_tpu_torch.ops.probe_ablation", "pixie_tpu_torch.ops.gather",
               "pixie_tpu_torch.scripts", "pixie_tpu_torch.scripts.timing",
               "pixie_tpu_torch.scripts.probe_kernel_ablation",
-              "pixie_tpu_torch.scripts.probe_vmem_gather"):
+              "pixie_tpu_torch.scripts.probe_vmem_gather",
+              "pixie_tpu_torch.recon.hashgrid", "pixie_tpu_torch.recon.mxu_hash",
+              "pixie_tpu_torch.recon.field", "pixie_tpu_torch.recon.field_adapter",
+              "pixie_tpu_torch.recon.tcnn_compat", "pixie_tpu_torch.voxel.voxelize"):
         assert m in MODULES
 
 

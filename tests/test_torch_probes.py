@@ -10,8 +10,9 @@ probe's particle distribution, at the bounds of
 ``tests/test_torch_transfer.py::test_p2g_matches_pallas_interpret`` (atol
 2e-5, rtol 1e-4: the MXU contractions sum in another order).  The three
 ablated variants, which have no JAX counterpart, are held against numpy
-statements of what each computes, in float64 (rtol 1e-5) or, for the
-fold of ``minimal``, bit for bit.
+statements of what each computes, in float64 (rtol 1e-5; for
+``noatomics`` an emulation of the runs of same-cell lanes of each warp of
+B1's sorted schedule) or, for the fold of ``minimal``, bit for bit.
 """
 
 import importlib.util
@@ -181,17 +182,43 @@ def test_noweights_splats_constants_onto_each_stencil():
 
 
 def test_noatomics_sums_full_over_nodes():
+    """noatomics is B1's schedule without the atomics: row q (a position of
+    the stably sorted bin keys) holds the sum, over the run of same-cell
+    lanes of its warp of 32 that ends at q, of the particles' in-grid node
+    values (full's contributions summed over the 27 nodes); every other row
+    is 0.  Emulated here with numpy's stable argsort and a loop over the
+    warps, in float64 (rtol 1e-5 of the largest |row|); its rows sum to
+    full's grid.  Particles hanging off the low faces and inactive ones are
+    in the scene."""
     cfg = p1.config()
-    _, args = _probe_state(800, inactive_every=6)
+    d, args = _probe_state(800, inactive_every=6)
+    d["x"][:40] = np.float32(0.01)
+    args = (torch.as_tensor(d["x"]), *args[1:])
     got = to_np(pa.p2g_variant("noatomics", *args, cfg, DT)).astype(np.float64)
     grid = to_np(pa.p2g_variant("full", *args, cfg, DT)).astype(np.float64)
     assert got.shape == (800, 4)
-    np.testing.assert_array_equal(got[~to_np(args[6])], 0.0)
+    rows = to_np(transfer.p2g_contributions(*args, cfg, DT)[0].sum(0)).astype(np.float64)
+    keys = to_np(transfer.p2g_bin_keys_plain(args[0], args[6], cfg.n_grid, cfg.inv_dx))
+    nb, hbits = transfer.bin_layout(cfg.n_grid)
+    perm = np.argsort(keys, kind="stable")
+    live = (keys[perm] >> hbits) < nb ** 3
+    base = np.floor(d["x"][perm] * np.float32(cfg.inv_dx) - np.float32(0.5)).astype(np.int64)
+    want, n_runs = np.zeros((800, 4)), 0
+    for w0 in range(0, 800, 32):
+        q = w0
+        while q < min(w0 + 32, 800):
+            end = q + 1
+            while (live[q] and end < min(w0 + 32, 800) and live[end]
+                   and (base[end] == base[q]).all()):
+                end += 1
+            if live[q]:
+                want[end - 1] = rows[perm[q:end]].sum(0)
+                n_runs += 1
+            q = end
+    assert 0 < n_runs < int(live.sum())                  # some runs hold several lanes
+    assert int((np.abs(got).sum(1) > 0).sum()) == n_runs
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(got.sum(0), grid.reshape(-1, 4).sum(0), rtol=1e-5)
-    # one particle alone: its row is the whole grid it splats
-    one = [t[7:8] for t in args]
-    alone = to_np(pa.p2g_variant("full", *one, cfg, DT)).astype(np.float64)
-    np.testing.assert_allclose(got[7], alone.reshape(-1, 4).sum(0), rtol=1e-5, atol=1e-12)
 
 
 def test_minimal_is_the_fold_of_the_inputs():
@@ -254,7 +281,10 @@ def test_probe_kernel_ablation_main_prints_the_jax_probe_lines(capsys):
                for ln in timed)
     assert [ln for ln in lines if ln.startswith("order: ")] == ["order: generated",
                                                                  "order: cell_sorted"]
-    assert set(out) == set(pa.MODES)
+    assert [ln for ln in lines if ln.startswith("keys+sort: ")] == [
+        ln for ln in lines if re.fullmatch(r"keys\+sort: \d+\.\d+ ms/call", ln)]
+    assert len([ln for ln in lines if ln.startswith("keys+sort: ")]) == 2
+    assert set(out) == {*pa.MODES, "keys_sort"}
     assert all(set(v) == set(p1.ORDERS) and min(v.values()) > 0 for v in out.values())
 
 

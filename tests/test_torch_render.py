@@ -773,8 +773,9 @@ def test_main_cli_trains_a_capture_then_renders_it(tmp_path):
     the checkpoint it trained: one frame of 40 substeps on the CPU (the tree
     config at frame_dt 4e-3), seen from the capture's camera 4 (cameras.json
     in the reference's layout).
-    The object's material PLY is given (a jelly lattice over the cube), so
-    the neural stage finds it and skips, as pipeline.py's does."""
+    The object's voxel artifacts (placeholders) and material PLY (a jelly
+    lattice over the cube) are given, so the voxel and neural stages find
+    them and skip, as pipeline.py's do."""
     from test_recon import make_synthetic_blender_dataset
 
     from pixie_tpu.config import compose
@@ -798,6 +799,10 @@ def test_main_cli_trains_a_capture_then_renders_it(tmp_path):
     g = np.linspace(-0.55, 0.55, 12, dtype=np.float32)
     lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
     k = len(lattice)
+    art = pipeline.voxel_artifact_paths(paths["render_output"])
+    for key in ("features", "mask"):
+        Path(art[key]).parent.mkdir(parents=True, exist_ok=True)
+        np.save(art[key], np.zeros((2, 2, 2), np.float32))
     write_ply(Path(paths["render_output"]) / "sample_0" / "mapped_preds.ply",
               make_material_vertex(coords=lattice, density=np.full(k, 200.0, np.float32),
                                    E=np.full(k, 2e6, np.float32), nu=np.full(k, 0.4, np.float32),
