@@ -97,6 +97,20 @@ Phases (any failure exits non-zero):
                 max_res 2048) through load_f3rm_checkpoint and
                 TcnnFieldAdapter over the 64^3 grid in batches of 4096,
                 1,000 points against the CPU within 1e-5 of the largest value
+  8. field    — field training on phase 5's capture (12 views at 800x800,
+                2 held out): seeded ViT-L/14-336 weights under HF's keys in a
+                temporary hub-cache snapshot; extract_clip_features in
+                bfloat16 (the default) against float32 on the card; then
+                pipeline.train_nerf (the CLIP features extracted into
+                clip_patch_features.npy, the shipped fields: MXU NerfField
+                16 x 2, FeatureField 12 x 8 widened to the features' 1024,
+                ProposalField 5 x 2; 4096 rays, 64 + 64 samples, the config
+                tree's) for FIELD_ITERS of its 5,000 iterations; ms/step,
+                launches, device time and idle share a step and the ten
+                kernels with the most device time (torch.profiler over
+                steps 20-24), peak memory, the loss (it must fall,
+                finite), held-out PSNR; then generate_voxels on the new
+                field.pth at 64^3 (grid shape, occupied voxels, seconds)
 The line before the last is the kernel JSON (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs,
@@ -108,6 +122,7 @@ of the pipeline paths, as those launch no probe kernel.  The last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import statistics
@@ -195,6 +210,13 @@ PROBE_OPS = {"full": P2G_OPS, "noweights": 214, "noatomics": P2G_OPS, "minimal":
 # |feature|: float32 sums of the card's and the CPU's matmuls in another
 # order
 VOX_FIT_STEPS, VOX_MASK_RANGE, F3RM_RTOL = 120, (50_000, 150_000), 1e-5
+# phase 8: training iterations of the config's 5,000 (the learning rate
+# decays over the run's own length, as FieldTrainConfig.max_iterations sets
+# it); the profiled window of steps; the CLIP tower's bfloat16 features
+# against its float32 ones, relative to the largest |value|: 24 pre-LN
+# blocks with the residual stream and every product's output rounded to
+# bfloat16 (2^-8 relative), seeded at HF's initial scales
+FIELD_ITERS, FIELD_PROFILE, CLIP_BF16_RTOL = 250, (20, 25), 5e-2
 # a (pixel, splat) pair of the blend: offsets, conic power, exp, alpha and its
 # gate (16), as every pair evaluates them; the blend of a hit is not counted
 BLEND_PAIR_OPS = 16
@@ -1815,6 +1837,199 @@ def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = 
     return launches
 
 
+def _clip_snapshot(path: Path, dev, seed: int = 0) -> None:
+    """A seeded ViT-L/14-336 CLIPVisionModel snapshot in ``path``:
+    config.json and model.safetensors under HF's keys, at HF's initial
+    scales (CLIPPreTrainedModel._init_weights), written from the card."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch.recon.clip_tower import CLIPVisionConfig
+
+    c = CLIPVisionConfig.vit_l_14_336()
+    hid, n_layers, p = c.hidden_size, c.num_hidden_layers, c.patch_size
+    in_std, out_std, fc_std = hid ** -0.5 * (2 * n_layers) ** -0.5, hid ** -0.5, (2 * hid) ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"vision_model.embeddings.class_embedding": ((hid,), hid ** -0.5),
+              "vision_model.embeddings.patch_embedding.weight": ((hid, 3, p, p), 0.02),
+              "vision_model.embeddings.position_embedding.weight":
+                  ((1 + (c.image_size // p) ** 2, hid), 0.02)}
+    for name in ("pre_layrnorm", "post_layernorm"):
+        shapes[f"vision_model.{name}.weight"] = ((hid,), None)
+        shapes[f"vision_model.{name}.bias"] = ((hid,), 0.0)
+    for i in range(n_layers):
+        lp = f"vision_model.encoder.layers.{i}."
+        for n, std in (("q", in_std), ("k", in_std), ("v", in_std), ("out", out_std)):
+            shapes[f"{lp}self_attn.{n}_proj.weight"] = ((hid, hid), std)
+            shapes[f"{lp}self_attn.{n}_proj.bias"] = ((hid,), 0.0)
+        for n in ("layer_norm1", "layer_norm2"):
+            shapes[f"{lp}{n}.weight"] = ((hid,), None)
+            shapes[f"{lp}{n}.bias"] = ((hid,), 0.0)
+        shapes[f"{lp}mlp.fc1.weight"] = ((c.intermediate_size, hid), fc_std)
+        shapes[f"{lp}mlp.fc1.bias"] = ((c.intermediate_size,), 0.0)
+        shapes[f"{lp}mlp.fc2.weight"] = ((hid, c.intermediate_size), in_std)
+        shapes[f"{lp}mlp.fc2.bias"] = ((hid,), 0.0)
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
+        "hidden_size": hid, "intermediate_size": c.intermediate_size,
+        "num_hidden_layers": n_layers, "num_attention_heads": c.num_attention_heads,
+        "patch_size": p, "image_size": c.image_size, "layer_norm_eps": c.layer_norm_eps,
+        "hidden_act": "quick_gelu", "num_channels": 3}))
+    header, offset = {}, 0
+    for name, (shape, _) in shapes.items():
+        n = 4 * int(np.prod(shape))
+        header[name] = {"dtype": "F32", "shape": list(shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    with open(path / "model.safetensors", "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for shape, std in shapes.values():
+            if std is None:
+                t = torch.ones(shape, device=dev)
+            else:
+                t = torch.randn(shape, generator=gen, device=dev) * std
+            f.write(t.cpu().numpy().astype("<f4").tobytes())
+
+
+def phase_field(dev, capture: Path, iters: int = FIELD_ITERS,
+                window: tuple[int, int] = FIELD_PROFILE) -> dict:
+    """CLIP extraction at full width, then field training through
+    pipeline.train_nerf on ``capture`` and generate_voxels on its
+    checkpoint; returns the path's kernel launches (it runs none of the
+    port's kernels)."""
+    import os
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.config import compose
+    from pixie_tpu_torch.recon.clip_features import CLIPArgs, extract_clip_features
+
+    t_phase = time.time()
+    vc, t3 = compose().voxelization, compose().training_3d
+    views = sorted(capture.glob("*.png"))
+    with tempfile.TemporaryDirectory(prefix="pixie_smoke_field_") as tmp:
+        root = Path(tmp)
+        hub = root / "hub"
+        t0 = time.time()
+        _clip_snapshot(hub / ("models--" + CLIPArgs.model_name.replace("/", "--")) / "snapshots"
+                       / "seeded", dev)
+        os.environ["HF_HUB_CACHE"] = str(hub)
+        print(f"field: seeded ViT-L/14-336 snapshot written in {time.time() - t0:.2f} s",
+              flush=True)
+
+        # 1. CLIP features, bfloat16 (the default) and float32
+        secs = {}
+        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", None)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            feats = extract_clip_features(views, device=dev, dtype=dtype)
+            secs[name] = (time.time() - t0, feats)
+        (bf_s, bf), (f32_s, f32) = secs["bfloat16"], secs["float32"]
+        err = float(np.abs(bf.astype(np.float32) - f32.astype(np.float32)).max())
+        scale = float(np.abs(f32.astype(np.float32)).max())
+        print(f"field: CLIP features {bf.shape} {bf.dtype} from {len(views)} views: bfloat16 "
+              f"{bf_s:.2f} s, float32 {f32_s:.2f} s (each with the weights' load); bfloat16 vs "
+              f"float32 max_abs_err {err:.4e} of max |value| {scale:.4e} (tol "
+              f"{CLIP_BF16_RTOL * scale:.4e}), mean |diff| "
+              f"{float(np.abs(bf.astype(np.float32) - f32.astype(np.float32)).mean()):.4e}",
+              flush=True)
+        want = (len(views), 24, 24, 1024)
+        if bf.shape != want or not np.isfinite(f32).all() or not np.isfinite(bf).all():
+            fail(f"CLIP features {bf.shape} not {want} or not finite")
+        if not err <= CLIP_BF16_RTOL * scale:
+            fail("the bfloat16 CLIP tower disagrees with the float32 one")
+        del bf, f32, secs
+
+        # 2. field training through the pipeline's stage
+        nerf_out = root / "f3rm"
+        steps = []
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+        def on_step(it, loss):
+            torch.cuda.synchronize()
+            steps.append((it, time.perf_counter(), float(loss)))
+            if it == window[0] - 1:
+                prof.start()
+            elif it == window[1] - 1:
+                prof.stop()
+
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        fields = pipeline.train_nerf(capture, nerf_out, training_3d={
+            "nerf_max_num_iterations": iters}, device=dev, on_step=on_step)
+        torch.cuda.synchronize()
+        os.environ.pop("HF_HUB_CACHE")
+        t_end = time.perf_counter()
+        wall = time.time() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        metrics = json.loads((nerf_out / "metrics.json").read_text())
+        meta = json.loads((nerf_out / "checkpoints" / "field_meta.json").read_text())
+        ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:]) if a[0] >= 10]
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_launch = sum(1 for e in events if e.name in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+        n_win = window[1] - window[0]
+        dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_win
+        by_name, n_by_name = collections.Counter(), collections.Counter()
+        for e in kernels:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_win
+            n_by_name[e.name] += 1 / n_win
+        med = statistics.median(ms)
+        losses = [x[2] for x in steps]
+        print(f"field: pipeline.train_nerf {wall:.1f} s for {iters} of "
+              f"{t3.nerf_max_num_iterations} iterations ({t3.nerf_rays_per_batch} rays, "
+              f"{t3.nerf_n_coarse} + {t3.nerf_n_fine} samples; the CLIP extraction into "
+              f"clip_patch_features.npy, the training, the checkpoint and the held-out "
+              f"views); median {med:.2f} ms/step over steps 10..{iters} (synchronized), p10 "
+              f"{np.percentile(ms, 10):.2f}, p90 {np.percentile(ms, 90):.2f}; steps "
+              f"{window[0]}..{window[1] - 1} profiled: {n_launch / n_win:.1f} kernel launches, "
+              f"{len(kernels) / n_win:.1f} device kernels, device time {dev_ms:.3f} ms a step, "
+              f"device idle {1.0 - dev_ms / med:.3f} of the median step; peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+        for name, t in by_name.most_common(10):
+            print(f"field:   {t:8.3f} ms a step, {n_by_name[name]:6.1f} launches: {name[:100]}")
+        print(f"field: loss {losses[0]:.5f} at step 0, {losses[-1]:.5f} at step {iters - 1}; "
+              f"train_s {metrics['train_s']:.2f}; held-out PSNR {metrics['psnr_per_view']} dB "
+              f"(mean {metrics['psnr_mean']:.3f}); eval + save {t_end - steps[-1][1]:.2f} s; "
+              f"meta {meta}; launches {launches}", flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail("field training loss did not fall or went non-finite")
+        if set(fields) != {"nerf", "feat", "prop"} or meta["feature_dim"] != 1024 or not \
+                meta["with_features"]:
+            fail(f"train_nerf trained {sorted(fields)} with meta {meta}, not the distilled "
+                 f"1024-wide feature field")
+        if not np.isfinite(metrics["psnr_mean"]):
+            fail("non-finite held-out PSNR")
+        del fields
+
+        # 3. the voxelizer on the new checkpoint
+        torch.cuda.synchronize()
+        t0 = time.time()
+        vox = pipeline.generate_voxels(nerf_out, root / "render", grid_size=64,
+                                       batch_size=vc.batch_size, device=dev)
+        torch.cuda.synchronize()
+        vox_s = time.time() - t0
+        grid = vox["features_dev"]
+        timings = vox.pop("wait")()
+        mask = np.load(vox["mask"]) > 0.5
+        print(f"field: generate_voxels on the trained field.pth {vox_s:.2f} s, grid "
+              f"{tuple(grid.shape)} {grid.dtype}, {int(mask.sum())} occupied voxels of 64^3; "
+              f"timings { {k: round(v, 4) for k, v in timings.items()} }", flush=True)
+        if tuple(grid.shape) != (64, 64, 64, 1024) or not bool(torch.isfinite(grid).all()):
+            fail(f"the voxel grid {tuple(grid.shape)} is not 64^3 x 1024 or not finite")
+        del vox, grid
+        print(f"field: nvidia-smi {_smi()}", flush=True)
+    print(f"field: phase 8 in {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -1835,6 +2050,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="pixie_smoke_train_") as tmp:
         paths = {"probes": probe_launches, "train": phase_train(dev, Path(tmp))}
         paths.update(phase_slice(dev, gs_dir=Path(tmp) / "gs"))
+        paths["field"] = phase_field(dev, Path(tmp) / "capture")
     paths["voxelize"] = phase_voxelize(dev)
     print(f"launches by path: {paths}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}

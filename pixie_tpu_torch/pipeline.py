@@ -1,5 +1,9 @@
 """The stages of ``pipeline.py`` that the port holds:
 
+  train_nerf                   — the object's multi-view capture (+ CLIP
+      patch features of its views, extracted and cached as
+      clip_patch_features.npy) -> the distilled feature field ->
+      f3rm/checkpoints/field.pth  (pipeline.py:86-127)
   train_gaussians              — the object's multi-view capture ->
       3DGS training -> gs/point_cloud/iteration_K/point_cloud.ply
       (pipeline.py:130-140)
@@ -18,7 +22,7 @@ The stage functions take explicit arguments (no config tree needed);
 through ``pixie_tpu_torch.config`` (over the shared YAML tree) and runs the
 stages, joining the voxelizer's feature write before it returns
 (pipeline.py:175-185, 408-410).  The Blender render stage that writes the
-capture, field training and U-Net training are not in this port.
+capture and U-Net training are not in this port.
 
 Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
 """
@@ -28,6 +32,7 @@ from __future__ import annotations
 import logging
 import sys
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 import numpy as np
@@ -68,6 +73,64 @@ def has_capture(data_dir: str | Path) -> bool:
     data_dir = Path(data_dir)
     return (any((data_dir / n).exists() for n in ("transforms.json", "transforms_train.json"))
             or is_colmap_capture(data_dir))
+
+
+def train_nerf(
+    data_dir: str | Path,
+    nerf_output: str | Path,
+    training_3d: Mapping | None = None,
+    overwrite: bool = False,
+    device: str | torch.device = "cuda",
+    on_step=None,
+) -> dict | None:
+    """Field training of the capture in ``data_dir`` into ``nerf_output``
+    (``checkpoints/field.pth``); returns the fields, or None when the
+    checkpoint exists and ``overwrite`` is off, or when ``data_dir`` holds
+    no capture.  ``training_3d`` is the config tree's node, or some of its
+    keys over the shipped tree's.  With ``distill_features`` and no
+    ``clip_features_path``, the CLIP features of the capture's PNGs are
+    extracted into ``nerf_output/clip_patch_features.npy`` first; where no
+    CLIP weights are found the field trains RGB-only.  ``on_step(it, loss)``
+    is passed to the trainer."""
+    from pixie_tpu_torch.recon.field import RenderConfig  # noqa: PLC0415
+    from pixie_tpu_torch.recon.train_field import (  # noqa: PLC0415
+        FIELD_CKPT, FieldTrainConfig, train_feature_field,
+    )
+
+    out = Path(nerf_output)
+    if (out / FIELD_CKPT).exists() and not overwrite:
+        logging.info("[nerf] checkpoint exists, skipping")
+        return None
+    if not has_capture(data_dir):
+        logging.info("[nerf] no capture (transforms*.json or COLMAP model) in %s: "
+                     "field training skipped", data_dir)
+        return None
+    from pixie_tpu_torch.config import compose  # noqa: PLC0415
+
+    t3 = {**compose().training_3d, **(training_3d or {})}
+    # the CLIP distillation target: an explicit path, else extracted from the
+    # training views (the f3rm method's datamanager behavior; cached)
+    features_path = t3.get("clip_features_path")
+    if features_path is None and t3.get("distill_features", True):
+        cache = out / "clip_patch_features.npy"
+        if not cache.exists():
+            from pixie_tpu_torch.recon.clip_features import (  # noqa: PLC0415
+                CLIPWeightsUnavailable, extract_clip_features,
+            )
+
+            try:
+                extract_clip_features(sorted(Path(data_dir).glob("*.png")), cache_path=cache,
+                                      device=device)
+            except CLIPWeightsUnavailable as e:
+                logging.warning("[nerf] CLIP extraction unavailable (%s); training without "
+                                "feature distillation", e)
+        if cache.exists():
+            features_path = cache
+    cfg = FieldTrainConfig(
+        max_iterations=t3["nerf_max_num_iterations"], rays_per_batch=t3["nerf_rays_per_batch"],
+        render=RenderConfig(n_coarse=t3["nerf_n_coarse"], n_fine=t3["nerf_n_fine"]))
+    return train_feature_field(data_dir, out, cfg=cfg, features_path=features_path,
+                               device=device, on_step=on_step)
 
 
 def train_gaussians(
@@ -227,8 +290,8 @@ def run_physics_simulation(
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
-    """``pipeline.py``'s 3DGS training, voxelizer and neural slice with its
-    ``key=value`` overrides."""
+    """``pipeline.py``'s field and 3DGS training, voxelizer and neural slice
+    with its ``key=value`` overrides."""
     from pixie_tpu_torch.config import compose  # noqa: PLC0415
     from pixie_tpu_torch.utils.paths import (  # noqa: PLC0415
         create_directories, get_output_paths, resolve_paths,
@@ -245,6 +308,8 @@ def main(argv=None, device: str | torch.device = "cuda"):
     create_directories(paths)
 
     t0 = time.time()
+    train_nerf(paths["data_dir"], paths["nerf_output"], training_3d=cfg.training_3d,
+               overwrite=bool(cfg.overwrite), device=device)
     train_gaussians(paths["data_dir"], paths["gs_output"],
                     iterations=cfg.training_3d.gs_iterations,
                     overwrite=bool(cfg.overwrite), device=device)

@@ -86,16 +86,26 @@ def cell_corners(pos: torch.Tensor, hi: int, x_bit: int = 2):
     floor = torch.floor(pos)
     frac = (pos - floor)[:, None, :]
     cells = torch.clamp(floor.to(torch.int64)[:, None, :] + off, 0, hi)
-    w = torch.where(off == 1, frac, 1.0 - frac)
-    return cells, (w[..., 0] * w[..., 1]) * w[..., 2]
+    wx, wy, wz = torch.where(off == 1, frac, 1.0 - frac).unbind(-1)
+    return cells, (wx * wy) * wz
+
+
+def gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``rows[idx]`` for (T, F) rows and integer ``idx`` of any shape, as
+    ``index_select``: its backward adds into the rows with atomics on the
+    card, where indexing's backward sorts the indices first (the bulk of a
+    field-training step's device time)."""
+    return torch.index_select(rows, 0, idx.reshape(-1)).reshape(*idx.shape, rows.shape[1])
 
 
 def sum_corners(terms: torch.Tensor) -> torch.Tensor:
     """(B, 8, F) -> (B, F): the corners' terms added one at a time to 0 in
-    corner order, as the JAX package sums them."""
+    corner order, as the JAX package sums them.  ``unbind`` keeps the
+    backward to one stack of the 8 gradients (indexing a corner at a time
+    would zero-fill a (B, 8, F) gradient for each)."""
     acc = torch.zeros_like(terms[:, 0])
-    for k in range(8):
-        acc = acc + terms[:, k]
+    for term in terms.unbind(1):
+        acc = acc + term
     return acc
 
 
@@ -120,7 +130,7 @@ class HashGridEncoding(nn.Module):
         for level, res in enumerate(cfg.resolutions):
             cells, w = cell_corners(pts * res, res)
             idx = hash_corners(*cells.unbind(-1), 2 ** cfg.log2_table_size, res)
-            outs.append(sum_corners(w[..., None] * table[level, idx]))
+            outs.append(sum_corners(w[..., None] * gather_rows(table[level], idx)))
         return torch.cat(outs, dim=-1).reshape(*x.shape[:-1], cfg.out_dim)
 
 

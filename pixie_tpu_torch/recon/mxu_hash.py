@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from pixie_tpu_torch.recon.hashgrid import (
-    TABLE_SHIFT, cell_corners, hash_corners, sum_corners,
+    TABLE_SHIFT, cell_corners, gather_rows, hash_corners, sum_corners,
 )
 
 
@@ -71,7 +71,7 @@ def encode_points(pts: torch.Tensor, table: torch.Tensor, cfg: MXUHashConfig) ->
         idx = hash_corners(*cells.unbind(-1), lo * hi, res)
         if cfg.bf16_dots:
             w = w.to(torch.bfloat16).to(torch.float32)
-        outs.append(sum_corners(w[..., None] * rows[(idx % lo) * hi + idx // lo]))
+        outs.append(sum_corners(w[..., None] * gather_rows(rows, (idx % lo) * hi + idx // lo)))
     return torch.cat(outs, dim=-1)
 
 

@@ -25,8 +25,10 @@ version (1e-5 of the largest |value|), minimal adds 26 floats in the plain
 version's order (1e-6).  The take_along_axis kernels (P2) copy values and
 agree exactly.  The voxelizer stage (plain PyTorch) is held against the
 CPU: the occupancy mask bit for bit, float16 artifacts within one ulp,
-float32 field outputs within 1e-5 of the largest value.  This file imports
-no JAX package module.
+float32 field outputs within 1e-5 of the largest value.  The field
+renders, their gradients and the CLIP tower (plain PyTorch) are held
+against the CPU by the bounds their CPU tests hold them to JAX by.  This
+file imports no JAX package module.
 """
 
 import numpy as np
@@ -882,3 +884,79 @@ def test_tcnn_network_on_cuda_matches_cpu(cuda_device):
         want = to_np(net(x))
         got = to_np(net.to(cuda_device)(x.to(cuda_device)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def _seeded_module(module, seed):
+    """Hash tables U(0, 1), weights N(0, 0.3), biases N(0, 0.1) from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in module.named_parameters():
+            if name.endswith("table"):
+                prm.copy_(torch.rand(prm.shape, generator=gen))
+            else:
+                prm.copy_(torch.randn(prm.shape, generator=gen)
+                          * (0.3 if name.endswith("weight") else 0.1))
+    return module
+
+
+def test_field_render_and_gradients_on_cuda_match_cpu(cuda_device):
+    """render_rays_prop through the shipped fields (mxu; a 24-wide feature
+    field) in train mode on the same draws, the card against the CPU:
+    outputs within 1e-3 of the largest value, every parameter's gradient
+    within 2e-2 of its largest, the bounds tests/test_torch_field_render.py
+    holds the port to JAX by (sample positions a few ulps apart: the CPU's
+    cumsum accumulates in double; bfloat16 MXU weights and gradients;
+    index_add_'s float atomics in run-dependent order on the card)."""
+    from pixie_tpu_torch.recon import field as F
+
+    rng = np.random.default_rng(0)
+    target = rng.uniform(-0.3, 0.3, (64, 3))
+    origins = rng.normal(size=(64, 3))
+    origins *= 2.0 / np.linalg.norm(origins, axis=1, keepdims=True)
+    dirs = target - origins
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    rcfg = F.RenderConfig(n_coarse=32, n_fine=16)
+    draws = F.draw_uniforms(64, rcfg, torch.Generator().manual_seed(1))
+    cot = {k: torch.as_tensor(rng.normal(size=s).astype(np.float32))
+           for k, s in (("rgb", (64, 3)), ("depth", (64,)), ("feature", (64, 24)))}
+    results = {}
+    for dev in ("cpu", cuda_device):
+        fields = {"prop": _seeded_module(F.ProposalField(), 2),
+                  "nerf": _seeded_module(F.NerfField(), 3),
+                  "feat": _seeded_module(F.FeatureField(feature_dim=24), 4)}
+        for m in fields.values():
+            m.to(dev)
+        out = F.render_rays_prop(
+            fields["prop"], fields["nerf"], fields["feat"],
+            *(torch.as_tensor(a.astype(np.float32), device=dev) for a in (origins, dirs)),
+            rcfg, train=True, draws=tuple(d.to(dev) for d in draws))
+        (sum((out[k] * cot[k].to(dev)).sum() for k in cot) + out["prop_loss"]).backward()
+        results[str(dev)] = ({k: to_np(v) for k, v in out.items()},
+                             {f"{n}.{k}": to_np(p.grad) for n, m in fields.items()
+                              for k, p in m.named_parameters()})
+    (want_out, want_grad), (got_out, got_grad) = results["cpu"], results[str(cuda_device)]
+    for k, w in want_out.items():
+        np.testing.assert_allclose(got_out[k], w, rtol=0, atol=1e-3 * np.abs(w).max(), err_msg=k)
+    for k, w in want_grad.items():
+        np.testing.assert_allclose(got_grad[k], w, rtol=0, atol=2e-2 * np.abs(w).max(),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_clip_tower_on_cuda_matches_cpu(cuda_device, dtype):
+    """The CLIP tower (a small config, seeded HF weights) on a rectangular
+    patch grid: float32 within 1e-5 of the largest value, bfloat16 within
+    2e-2 (tests/test_torch_clip.py's bounds against JAX)."""
+    from torch_parity import TINY_CLIP, hf_clip_state_dict
+
+    from pixie_tpu_torch.recon import clip_tower as C
+
+    cfg = C.CLIPVisionConfig(**{k: TINY_CLIP[k] for k in (
+        "hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
+        "patch_size", "image_size")})
+    params = C.convert_clip_vision_state_dict(hf_clip_state_dict(TINY_CLIP, seed=0), cfg)
+    images = np.random.default_rng(1).uniform(0, 1, (3, 40, 56, 3)).astype(np.float32)
+    want = C.extract_clip_features_torch(images, params, cfg, dtype=dtype, device="cpu")
+    got = C.extract_clip_features_torch(images, params, cfg, dtype=dtype, device=cuda_device)
+    rtol = 1e-5 if dtype is None else 2e-2
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())

@@ -43,7 +43,8 @@ def test_module_list_covers_the_slice():
               "pixie_tpu_torch.scripts.probe_vmem_gather",
               "pixie_tpu_torch.recon.hashgrid", "pixie_tpu_torch.recon.mxu_hash",
               "pixie_tpu_torch.recon.field", "pixie_tpu_torch.recon.field_adapter",
-              "pixie_tpu_torch.recon.tcnn_compat", "pixie_tpu_torch.voxel.voxelize"):
+              "pixie_tpu_torch.recon.tcnn_compat", "pixie_tpu_torch.voxel.voxelize",
+              "pixie_tpu_torch.recon.clip_tower", "pixie_tpu_torch.recon.clip_features"):
         assert m in MODULES
 
 
@@ -52,6 +53,7 @@ def test_no_jax_after_importing_every_module():
 
 
 @pytest.mark.parametrize("entry", ["pixie_tpu_torch.pipeline", "pixie_tpu_torch.sim.driver",
+                                   "pixie_tpu_torch.recon.train_field",
                                    "pixie_tpu_torch.scripts.probe_kernel_ablation",
                                    "pixie_tpu_torch.scripts.probe_vmem_gather"])
 def test_no_jax_from_entry_point(entry):

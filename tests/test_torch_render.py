@@ -766,10 +766,11 @@ def test_main_cli_renders_a_gs_checkpoint(tmp_path):
     assert list((sim / "frames").glob("output.*"))  # compile_video ran
 
 
-def test_main_cli_trains_a_capture_then_renders_it(tmp_path):
-    """``pipeline.main`` runs pipeline.py's train_gaussians stage on the
-    object's capture (the analytic sphere, 5 views at 32x32, 3 iterations
-    from 5000 random points in the unit cube), then simulates and renders
+def test_main_cli_trains_a_capture_then_renders_it(tmp_path, monkeypatch):
+    """``pipeline.main`` runs pipeline.py's train_nerf stage (2 iterations of
+    64 rays, RGB-only: no CLIP weights in the hub cache) and train_gaussians
+    stage on the object's capture (the analytic sphere, 5 views at 32x32, 3
+    iterations from 5000 random points in the unit cube), then simulates and renders
     the checkpoint it trained: one frame of 40 substeps on the CPU (the tree
     config at frame_dt 4e-3), seen from the capture's camera 4 (cameras.json
     in the reference's layout).
@@ -793,7 +794,10 @@ def test_main_cli_trains_a_capture_then_renders_it(tmp_path):
         json.dumps({**tree, "frame_dt": 4e-3}))
     argv = [f"obj_id={obj}", f"paths.base_path={tmp_path}",
             f"paths.physgaussian_config_dir={tmp_path / 'config'}", "physics.n_frames=1",
-            "training_3d.gs_iterations=3"]
+            "training_3d.gs_iterations=3", "training_3d.nerf_max_num_iterations=2",
+            "training_3d.nerf_rays_per_batch=64", "training_3d.nerf_n_coarse=8",
+            "training_3d.nerf_n_fine=8"]
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
     paths = get_output_paths(resolve_paths(compose(overrides=argv)), obj)
     data = make_synthetic_blender_dataset(Path(paths["data_dir"]), n_views=5, res=32)
     g = np.linspace(-0.55, 0.55, 12, dtype=np.float32)
@@ -819,6 +823,7 @@ def test_main_cli_trains_a_capture_then_renders_it(tmp_path):
     (gs / "cameras.json").write_text(json.dumps(cams))
 
     pipeline.main(argv, device="cpu")
+    assert (Path(paths["nerf_output"]) / "checkpoints" / "field.pth").exists()
     trained = load_gaussian_ply(gs / "point_cloud" / "iteration_3" / "point_cloud.ply")
     metrics = json.loads((gs / "metrics.json").read_text())
     assert len(trained["xyz"]) == metrics["n_gaussians"] == 5000

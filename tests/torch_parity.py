@@ -109,3 +109,79 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+# a CLIP vision tower small enough for the CPU, as HF config.json keys
+TINY_CLIP = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                 num_attention_heads=4, patch_size=8, image_size=32, layer_norm_eps=1e-5,
+                 hidden_act="quick_gelu", num_channels=3)
+
+
+def hf_clip_state_dict(cfg: dict, seed: int = 0) -> dict:
+    """Seeded HF ``CLIPVisionModel`` weights (numpy, ``vision_model.*``
+    keys): linear weights N(0, 1/fan_in), biases N(0, 0.02), LayerNorm
+    scales 1 + N(0, 0.1) and offsets N(0, 0.1), embeddings N(0, 0.5)."""
+    rng = np.random.default_rng(seed)
+    hid, inter, p = cfg["hidden_size"], cfg["intermediate_size"], cfg["patch_size"]
+    n_pos = 1 + (cfg["image_size"] // p) ** 2
+
+    def normal(shape, std):
+        return (rng.normal(size=shape) * std).astype(np.float32)
+
+    sd = {"vision_model.embeddings.class_embedding": normal((hid,), 0.5),
+          "vision_model.embeddings.patch_embedding.weight": normal((hid, 3, p, p),
+                                                                   (3 * p * p) ** -0.5),
+          "vision_model.embeddings.position_embedding.weight": normal((n_pos, hid), 0.5)}
+
+    def norm(name):
+        sd[f"{name}.weight"] = 1.0 + normal((hid,), 0.1)
+        sd[f"{name}.bias"] = normal((hid,), 0.1)
+
+    def linear(name, n_out, n_in):
+        sd[f"{name}.weight"] = normal((n_out, n_in), n_in ** -0.5)
+        sd[f"{name}.bias"] = normal((n_out,), 0.02)
+
+    norm("vision_model.pre_layrnorm")
+    for i in range(cfg["num_hidden_layers"]):
+        lp = f"vision_model.encoder.layers.{i}."
+        for n in ("q", "k", "v", "out"):
+            linear(f"{lp}self_attn.{n}_proj", hid, hid)
+        norm(lp + "layer_norm1")
+        norm(lp + "layer_norm2")
+        linear(lp + "mlp.fc1", inter, hid)
+        linear(lp + "mlp.fc2", hid, inter)
+    norm("vision_model.post_layernorm")
+    return sd
+
+
+def write_safetensors(path, arrays: dict) -> None:
+    """A ``.safetensors`` file of float32 numpy arrays (the format's header:
+    an 8-byte little-endian length, then JSON with each tensor's dtype,
+    shape and byte range)."""
+    import json
+
+    header, offset = {}, 0
+    for name, a in arrays.items():
+        n = np.asarray(a, "<f4").nbytes
+        header[name] = {"dtype": "F32", "shape": list(np.shape(a)),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for a in arrays.values():
+            f.write(np.ascontiguousarray(a, "<f4").tobytes())
+
+
+def write_clip_snapshot(path, cfg: dict, seed: int = 0):
+    """A local HF snapshot directory of a seeded CLIPVisionModel:
+    config.json and model.safetensors."""
+    import json
+    from pathlib import Path
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(dict(cfg, model_type="clip_vision_model",
+                                                      architectures=["CLIPVisionModel"])))
+    write_safetensors(path / "model.safetensors", hf_clip_state_dict(cfg, seed))
+    return path
