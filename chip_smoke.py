@@ -111,6 +111,21 @@ Phases (any failure exits non-zero):
                 steps 20-24), peak memory, the loss (it must fall,
                 finite), held-out PSNR; then generate_voxels on the new
                 field.pth at 64^3 (grid shape, occupied voxels, seconds)
+  9. unet_train — U-Net training at the shipped width: 5 seeded labelled
+                objects (64^3 x 768 float16 features, ids 0-6 in 7 sectors of
+                a ball, density/E/nu by id) in the dataset's file contract;
+                compute_normalization_ranges -> MaterialVoxelDataset ->
+                train_loop for both nets (the config tree's batch 4, lr 1e-4,
+                decay 0.998, seed; UNET_STEPS of its 300 epochs, one step an
+                epoch); ms/step (synchronized median over steps 3..N) and
+                data ms a step apart, launches and device time a step
+                (torch.profiler over 2 steps), peak memory, first and last
+                loss (finite, falling); run_inference over the test split on
+                the checkpoints the loop wrote (one-hot classes, metrics.json
+                keys); pipeline.generate_neural_segmentation on its file path
+                (a new object, occupancy placeholder) -> mapped_preds.ply; one
+                step of each net on the card against the CPU at a reduced
+                width (UNET_CHECK)
 The line before the last is the kernel JSON (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs,
@@ -217,6 +232,19 @@ VOX_FIT_STEPS, VOX_MASK_RANGE, F3RM_RTOL = 120, (50_000, 150_000), 1e-5
 # blocks with the residual stream and every product's output rounded to
 # bfloat16 (2^-8 relative), seeded at HF's initial scales
 FIELD_ITERS, FIELD_PROFILE, CLIP_BF16_RTOL = 250, (20, 25), 5e-2
+# phase 9: seeded labelled objects (5: int(0.9 * 5) = 4 train, one step an
+# epoch at the config's batch 4, 1 to test); updates a mode of the config's
+# 300 epochs; the profiled window of steps (2 steps); the card's step against
+# the CPU's at a reduced width (a CPU step at the shipped width takes
+# minutes): the loss within 1e-5 of the CPU's and every parameter's gradient
+# within 1e-3 of its largest |value| (or of 1e-3 of the net's largest, where
+# that is larger: biases ahead of a norm have gradients 0 in exact arithmetic,
+# rounding noise in both): cuDNN and oneDNN float32 convolutions (TF32 off)
+# sum 32^3 x 27 terms in other orders
+UNET_OBJECTS, UNET_STEPS, UNET_PROFILE = 5, 8, (3, 5)
+UNET_CHECK = dict(grid_size=32, model_channels=16, num_res_blocks=1, channel_mult=(1, 1, 2, 4),
+                  batch_size=2)
+UNET_LOSS_RTOL, UNET_GRAD_RTOL, UNET_GRAD_FLOOR = 1e-5, 1e-3, 1e-3
 # a (pixel, splat) pair of the blend: offsets, conic power, exp, alpha and its
 # gate (16), as every pair evaluates them; the blend of a hit is not counted
 BLEND_PAIR_OPS = 16
@@ -1892,6 +1920,23 @@ def _clip_snapshot(path: Path, dev, seed: int = 0) -> None:
             f.write(t.cpu().numpy().astype("<f4").tobytes())
 
 
+def _profile_per_step(prof, n_steps: int):
+    """A torch.profiler window's kernel launches, device kernels and device
+    ms per step, and device ms and launches by kernel name per step."""
+    import torch
+
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_launch = sum(1 for e in events if e.name in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    by_name, n_by_name = collections.Counter(), collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_steps
+        n_by_name[e.name] += 1 / n_steps
+    return (n_launch / n_steps, len(kernels) / n_steps, sum(by_name.values()), by_name,
+            n_by_name)
+
+
 def phase_field(dev, capture: Path, iters: int = FIELD_ITERS,
                 window: tuple[int, int] = FIELD_PROFILE) -> dict:
     """CLIP extraction at full width, then field training through
@@ -1971,16 +2016,8 @@ def phase_field(dev, capture: Path, iters: int = FIELD_ITERS,
         metrics = json.loads((nerf_out / "metrics.json").read_text())
         meta = json.loads((nerf_out / "checkpoints" / "field_meta.json").read_text())
         ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:]) if a[0] >= 10]
-        events = prof.events()
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        n_launch = sum(1 for e in events if e.name in (
-            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
         n_win = window[1] - window[0]
-        dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_win
-        by_name, n_by_name = collections.Counter(), collections.Counter()
-        for e in kernels:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_win
-            n_by_name[e.name] += 1 / n_win
+        n_launch, n_kern, dev_ms, by_name, n_by_name = _profile_per_step(prof, n_win)
         med = statistics.median(ms)
         losses = [x[2] for x in steps]
         print(f"field: pipeline.train_nerf {wall:.1f} s for {iters} of "
@@ -1989,8 +2026,8 @@ def phase_field(dev, capture: Path, iters: int = FIELD_ITERS,
               f"clip_patch_features.npy, the training, the checkpoint and the held-out "
               f"views); median {med:.2f} ms/step over steps 10..{iters} (synchronized), p10 "
               f"{np.percentile(ms, 10):.2f}, p90 {np.percentile(ms, 90):.2f}; steps "
-              f"{window[0]}..{window[1] - 1} profiled: {n_launch / n_win:.1f} kernel launches, "
-              f"{len(kernels) / n_win:.1f} device kernels, device time {dev_ms:.3f} ms a step, "
+              f"{window[0]}..{window[1] - 1} profiled: {n_launch:.1f} kernel launches, "
+              f"{n_kern:.1f} device kernels, device time {dev_ms:.3f} ms a step, "
               f"device idle {1.0 - dev_ms / med:.3f} of the median step; peak device memory "
               f"{peak:.2f} GiB", flush=True)
         for name, t in by_name.most_common(10):
@@ -2030,6 +2067,251 @@ def phase_field(dev, capture: Path, iters: int = FIELD_ITERS,
     return launches
 
 
+def _seed_labelled_objects(root: Path, n: int, d: int, fc: int, dev, seed: int = 0) -> None:
+    """``n`` objects in the dataset's file contract under ``root``: a ball
+    mask (radius 26-29/64 d) cut into 7 angular sectors with material ids
+    0-6 (7 outside), density, E and nu by id within the reference's ranges,
+    and float16 features: a random embedding of the voxel's id plus noise,
+    zero outside the mask (drawn on the card)."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.arange(d, device=dev, dtype=torch.float32) - (d - 1) / 2.0
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    r = torch.sqrt(x * x + y * y + z * z)
+    sector = ((torch.atan2(y, x) + torch.pi) / (2 * torch.pi) * 7).long().clamp(max=6)
+    emb = torch.randn(8, fc, generator=gen, device=dev)
+    for i in range(n):
+        obj = root / f"obj{i:03d}"
+        (obj / "sample_0").mkdir(parents=True)
+        inside = r < (29 - i % 4) * d / 64
+        ids = torch.where(inside, (sector + i) % 7, 7)
+        noise = torch.randn(d, d, d, generator=gen, device=dev)
+        f = inside[..., None] * (emb[ids] + torch.randn(d, d, d, fc, generator=gen,
+                                                        device=dev))
+        mat = torch.stack([torch.where(inside, 10 ** (2.0 + 0.2 * ids + 0.05 * noise), 0.0),
+                           torch.where(inside, 10 ** (4.0 + 0.8 * ids + 0.1 * noise), 0.0),
+                           torch.where(inside, 0.25 + 0.025 * ids, 0.0), ids.float()], -1)
+        np.save(obj / "clip_features_features.npy", f.half().cpu().numpy())
+        np.save(obj / "clip_features_mask.npy", inside.float().cpu().numpy())
+        np.save(obj / "sample_0" / "material_grid.npy", mat.cpu().numpy())
+        np.savez(obj / "clip_features.npz", min_bounds=np.full(3, -0.5, np.float32),
+                 max_bounds=np.full(3, 0.5, np.float32), grid_shape=np.array([d, d, d]))
+
+
+def _unet_step_card_vs_cpu(dev, fc: int, kw: dict = UNET_CHECK) -> None:
+    """One Trainer step of each net on the card and on the CPU from the same
+    seeded weights and batch (at ``kw``'s reduced width): the loss and every
+    parameter's gradient."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch.models.unet3d import seeded_state_dict
+    from pixie_tpu_torch.train.trainer import TrainConfig, Trainer, build_model
+
+    rng = np.random.default_rng(7)
+    b, d = kw["batch_size"], kw["grid_size"]
+    feat = rng.standard_normal((b, d, d, d, fc), dtype=np.float32)
+    mask = (rng.uniform(size=(b, d, d, d)) < 0.4).astype(np.float32)
+    mat_id = np.where(mask > 0, rng.integers(0, 7, mask.shape), 7)
+    cont = rng.uniform(-1, 1, (b, d, d, d, 3)).astype(np.float32)
+    for mode, target in (("discrete", mat_id), ("continuous", cont)):
+        cfg = TrainConfig(mode=mode, feature_channels=fc, **kw)
+        params = seeded_state_dict(build_model(cfg), seed=11)
+        runs = []   # (loss, gradients, seconds): the card's, then the CPU's
+        for where in (dev, torch.device("cpu")):
+            trainer = Trainer(cfg, device=where)
+            trainer.setup(1, params=params)
+            t0 = time.time()
+            loss = trainer.train_step((feat, target, mask))[0]
+            runs.append((loss, {n: p.grad.detach().cpu() for n, p in
+                                trainer.model.named_parameters()}, time.time() - t0))
+        (card_loss, card, _), (cpu_loss, cpu, cpu_s) = runs
+        top = max(float(g.abs().max()) for g in cpu.values())
+        worst = max(float((card[k] - g).abs().max())
+                    / max(float(g.abs().max()), UNET_GRAD_FLOOR * top) for k, g in cpu.items())
+        rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        print(f"unet_train: one {mode} step at {d}^3 x {fc}, channels "
+              f"{kw['model_channels']}, batch {b}: card vs CPU loss {card_loss:.7f} vs "
+              f"{cpu_loss:.7f} (rel {rel:.2e}, tol {UNET_LOSS_RTOL}), worst gradient "
+              f"{worst:.2e} of its scale (tol {UNET_GRAD_RTOL}) over {len(cpu)} tensors; CPU "
+              f"step {cpu_s:.2f} s", flush=True)
+        if not (rel <= UNET_LOSS_RTOL and worst <= UNET_GRAD_RTOL):
+            fail(f"the {mode} training step on the card disagrees with the CPU's")
+
+
+def phase_unet_train(dev, d: int = 64, fc: int = 768, n_objects: int = UNET_OBJECTS,
+                     steps: int = UNET_STEPS, window: tuple[int, int] = UNET_PROFILE,
+                     model_kwargs: dict | None = None, check: dict = UNET_CHECK) -> dict:
+    """U-Net training at the shipped width on seeded labelled objects:
+    compute_normalization_ranges, MaterialVoxelDataset, train_loop for both
+    nets (the config tree's batch, learning rate, decay and seed), then
+    run_inference over the test split and the pipeline's neural stage on its
+    file path (a new object with no material grid), both on the
+    checkpoints the loop wrote; one step on the card against the CPU.
+    Returns the path's kernel launches (it runs none of the port's
+    kernels)."""
+    import os
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.config import compose
+    from pixie_tpu_torch.train.data import MaterialVoxelDataset, load_splits
+    from pixie_tpu_torch.train.inference import run_inference
+    from pixie_tpu_torch.train.inspect_ranges import compute_normalization_ranges
+    from pixie_tpu_torch.train.trainer import TrainConfig, latest_checkpoint, train_loop
+    from pixie_tpu_torch.utils.io import read_ply
+    from pixie_tpu_torch.utils.norm import load_normalization_ranges
+
+    t_phase = time.time()
+    tr = compose().training
+    tt = tr.training
+    if model_kwargs is None:   # the config tree's widths: the shipped nets
+        model_kwargs = dict(cond_dim=tr.cond_dim, model_channels=tt.unet_model_channels,
+                            num_res_blocks=tt.unet_num_res_blocks,
+                            channel_mult=tuple(tt.unet_channel_mult),
+                            attention_resolutions=tuple(tt.attention_resolutions))
+    _reset_counts()
+    with tempfile.TemporaryDirectory(prefix="pixie_smoke_unet_") as tmp:
+        root = Path(tmp)
+        ro, stats = root / "render_outputs", root / "normalization_stats"
+        t0 = time.time()
+        _seed_labelled_objects(ro, n_objects, d, fc, dev)
+        t_seed = time.time() - t0
+        t0 = time.time()
+        ranges, problematic = compute_normalization_ranges(ro, stats, workers=1)
+        ds = MaterialVoxelDataset(ro, load_normalization_ranges(stats / "normalization_ranges.yaml"),
+                                  grid_size=d, feature_channels=fc,
+                                  problematic_objects_path=stats / "problematic_objects.json")
+        print(f"unet_train: {n_objects} seeded objects ({d}^3 x {fc} float16 features) "
+              f"written in {t_seed:.2f} s; normalization ranges in {time.time() - t0:.2f} s: "
+              f"{ {k: round(v, 4) for k, v in ranges.items() if k.endswith(('p1', 'p99'))} }, "
+              f"problematic {problematic}; dataset of {len(ds)}", flush=True)
+        if len(ds) != n_objects or problematic:
+            fail(f"the dataset holds {len(ds)} of {n_objects} objects ({problematic})")
+
+        ckpt = {}
+        for mode in ("discrete", "continuous"):
+            # (the YAML tree reads "1e-4" as a string)
+            cfg = TrainConfig(mode=mode, feature_channels=fc, grid_size=d,
+                              batch_size=int(tt.batch_size), lr=float(tt.lr),
+                              beta1=float(tt.beta1), beta2=float(tt.beta2),
+                              lr_decay=bool(tt.lr_decay),
+                              lr_decay_rate=float(tt.lr_decay_rate), epochs=steps,
+                              save_interval=int(tt.saving_intervals), seed=int(tt.seed),
+                              train_size=float(tt.train_size), **model_kwargs)
+            steps_seen = []
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+            def on_step(info):
+                steps_seen.append(info)
+                if info["step"] == window[0] - 1:
+                    prof.start()
+                elif info["step"] == window[1] - 1:
+                    prof.stop()
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            trainer, history = train_loop(cfg, ds, root / f"ck_{mode}", log_every=steps,
+                                          device=dev, on_step=on_step)
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            n_win = window[1] - window[0]
+            n_launch, n_kern, dev_ms, by_name, n_by_name = _profile_per_step(prof, n_win)
+            step_ms = [1e3 * x["step_s"] for x in steps_seen[2:]]
+            data_ms = [1e3 * x["data_s"] for x in steps_seen]
+            losses = [x["loss"] for x in steps_seen]
+            med = statistics.median(step_ms)
+            n_params = sum(p.numel() for p in trainer.model.parameters())
+            print(f"unet_train ({mode}): train_loop {wall:.1f} s for {len(steps_seen)} steps "
+                  f"({steps} of {tt.training_epochs} epochs, one step an epoch at batch "
+                  f"{cfg.batch_size}, lr {cfg.lr}, decay {cfg.lr_decay_rate}), {n_params} "
+                  f"params; step median {med:.1f} ms over steps 3..{len(steps_seen)} "
+                  f"(synchronized; the batch's float16 H2D copy and float32 cast included), "
+                  f"min {min(step_ms):.1f}, max {max(step_ms):.1f}; data (the host's load of "
+                  f"the batch) median "
+                  f"{statistics.median(data_ms):.1f} ms a step; steps {window[0] + 1}.."
+                  f"{window[1]} profiled: {n_launch:.1f} kernel launches, {n_kern:.1f} device "
+                  f"kernels, device time {dev_ms:.2f} ms a step, device idle "
+                  f"{1.0 - dev_ms / med:.3f} of the median step; peak device memory "
+                  f"{peak:.2f} GiB", flush=True)
+            for name, t in by_name.most_common(6):
+                print(f"unet_train:   {t:9.3f} ms a step, {n_by_name[name]:6.1f} launches: "
+                      f"{name[:100]}")
+            metric = "accuracy" if mode == "discrete" else "density_mse"
+            print(f"unet_train ({mode}): loss {losses[0]:.6f} at step 1, {losses[-1]:.6f} at "
+                  f"step {len(losses)}; {metric} {steps_seen[0][metric]:.5f} -> "
+                  f"{steps_seen[-1][metric]:.5f}; history {[round(h['loss'], 6) for h in history]}",
+                  flush=True)
+            if len(losses) != steps or not all(np.isfinite(losses)) or \
+                    not losses[-1] < losses[0]:
+                fail(f"{mode} training loss did not fall or went non-finite: {losses}")
+            ckpt[mode] = latest_checkpoint(root / f"ck_{mode}")
+            if ckpt[mode] is None or ckpt[mode].name != f"epoch_{steps - 1}.pth":
+                fail(f"{mode}: train_loop wrote {ckpt[mode]}, not epoch_{steps - 1}.pth")
+            del trainer
+            torch.cuda.empty_cache()
+
+        # run_inference over the test split, on the checkpoints the loop wrote
+        splits = load_splits(root / "ck_discrete" / "train_test_splits.json")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        report = run_inference(ds, ckpt["discrete"], ckpt["continuous"], root / "inference",
+                               batch_size=tr.inference.batch_size,
+                               indices=splits["test_indices"], model_kwargs=model_kwargs,
+                               device=dev)
+        inf_s = time.time() - t0
+        obj = splits["test_obj_ids"][0]
+        pred = np.load(root / "inference" / obj / "sample_0_pred.npy")
+        metrics = json.loads((root / "inference" / "metrics.json").read_text())
+        print(f"unet_train: run_inference over the test split {splits['test_obj_ids']} in "
+              f"{inf_s:.2f} s (batch {tr.inference.batch_size}, padded): seg_acc "
+              f"{report['seg_acc']['mean']:.4f}, cont_mse {report['cont_mse']['mean']:.5f}",
+              flush=True)
+        if pred.shape != (11, d, d, d) or not np.isfinite(pred).all() or \
+                not np.array_equal(pred[3:].sum(0), np.ones((d, d, d), np.float32)):
+            fail(f"{obj}: the prediction grid {pred.shape} is not finite one-hot classes")
+        keys = {"seg_acc", "density_mse", "youngs_mse", "poisson_mse", "cont_mse"}
+        if metrics["n_objects"] != 1 or not keys <= set(metrics) or \
+                set(metrics["per_object"][obj]) != keys:
+            fail(f"metrics.json lacks keys: {sorted(metrics)}")
+
+        # the pipeline's neural stage on its file path: a new object (the
+        # test object's features, no material grid)
+        fresh = ro / "fresh"
+        fresh.mkdir()
+        for name in ("clip_features_features.npy", "clip_features_mask.npy",
+                     "clip_features.npz"):
+            os.link(ro / obj / name, fresh / name)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ply = pipeline.generate_neural_segmentation(
+            fresh, root / "neural", "fresh", root / "ck_discrete", root / "ck_continuous",
+            grid_size=d, feature_channels=fc, model_kwargs=model_kwargs, device=dev,
+            batch_size=tr.inference.batch_size)
+        seg_s = time.time() - t0
+        verts = read_ply(ply)["vertex"]
+        n_mask = int(np.load(fresh / "clip_features_mask.npy").sum())
+        fresh_pred = np.load(root / "neural" / "fresh" / "sample_0_pred.npy")
+        print(f"unet_train: generate_neural_segmentation (file path, placeholder material "
+              f"grid) {seg_s:.2f} s -> {ply.name} with {len(verts)} vertices", flush=True)
+        if len(verts) != n_mask or not (fresh / "sample_0" / "material_grid.npy").exists() or \
+                not np.array_equal(fresh_pred[3:], pred[3:]):
+            fail("the pipeline's file path disagrees with run_inference on the same features")
+
+        _unet_step_card_vs_cpu(dev, fc, check)
+        launches = _read_counts()
+        print(f"unet_train: nvidia-smi {_smi()}", flush=True)
+    print(f"unet_train: phase 9 in {time.time() - t_phase:.1f} s; launches {launches}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -2052,6 +2334,7 @@ def main() -> int:
         paths.update(phase_slice(dev, gs_dir=Path(tmp) / "gs"))
         paths["field"] = phase_field(dev, Path(tmp) / "capture")
     paths["voxelize"] = phase_voxelize(dev)
+    paths["unet_train"] = phase_unet_train(dev)
     print(f"launches by path: {paths}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pixie_tpu"))

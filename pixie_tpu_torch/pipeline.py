@@ -11,8 +11,10 @@
       field.pth) -> 64^3 feature grid + occupancy mask, the clip_features*
       artifacts, and the feature grid left on the device (pipeline.py:143-172)
   generate_neural_segmentation — the feature grid (on the device from
-      generate_voxels, else clip_features_features.npy) + mask + npz -> both
-      U-Nets -> sample_{k}_pred.npy -> denormalization -> mapped_preds.ply
+      generate_voxels; else clip_features_features.npy read through
+      MaterialVoxelDataset and run_inference, with an occupancy placeholder
+      for a missing material_grid.npy) + mask + npz -> both U-Nets ->
+      sample_{k}_pred.npy -> denormalization -> mapped_preds.ply
       (pipeline.py:187-317)
   run_physics_simulation       — mapped_preds.ply -> MPM rollout ->
       ply_files/frame_%04d.ply + sim_info.json  (pipeline.py:328-375)
@@ -22,7 +24,9 @@ The stage functions take explicit arguments (no config tree needed);
 through ``pixie_tpu_torch.config`` (over the shared YAML tree) and runs the
 stages, joining the voxelizer's feature write before it returns
 (pipeline.py:175-185, 408-410).  The Blender render stage that writes the
-capture and U-Net training are not in this port.
+capture is not in this port.  The U-Nets the neural stage reads are
+trained by ``pixie_tpu_torch.train.trainer.train_loop``, as in the JAX
+package, outside the pipeline.
 
 Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
 """
@@ -38,31 +42,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pixie_tpu_torch.train.data import MaterialVoxelDataset
 from pixie_tpu_torch.train.inference import (
-    CombinedInference, infer_single_device, load_params,
+    CombinedInference, infer_single_device, load_params, run_inference,
 )
+from pixie_tpu_torch.train.trainer import latest_checkpoint
 from pixie_tpu_torch.utils.norm import load_normalization_ranges
 from pixie_tpu_torch.utils.paths import voxel_artifact_paths
 from pixie_tpu_torch.voxel.map_pred_to_coords import map_pred_to_ply
 
 REPO_NORMALIZATION = (Path(__file__).resolve().parent.parent / "normalization_stats"
                       / "normalization_ranges.yaml")
-
-
-def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
-    """Highest ``epoch_k.pth`` file: the reference's checkpoint names, the
-    only format ``train.inference.load_params`` reads.  The JAX package's
-    pixie_tpu/train/trainer.py:latest_checkpoint picks the highest orbax
-    ``epoch_k`` directory instead, which this port cannot load."""
-    ckpt_dir = Path(ckpt_dir)
-    if not ckpt_dir.exists():
-        return None
-    candidates = []
-    for p in ckpt_dir.glob("epoch_*.pth"):
-        k = p.stem.split("_", 1)[1]
-        if p.is_file() and k.isdigit():
-            candidates.append((int(k), p))
-    return max(candidates)[1] if candidates else None
 
 
 def has_capture(data_dir: str | Path) -> bool:
@@ -216,10 +206,18 @@ def generate_neural_segmentation(
     overwrite: bool = False,
     device: str | torch.device = "cuda",
     features_dev: torch.Tensor | None = None,
+    feature_type: str = "clip",
+    batch_size: int = 4,
 ) -> Path:
     """U-Net inference on the voxel grid -> ``mapped_preds.ply``; returns its
     path.  ``features_dev``: the (D,D,D,C) grid ``generate_voxels`` left on
-    the device, used in place of the npy, which may still be being written."""
+    the device, used in place of the npy, which may still be being written.
+    Without it the object is read from ``render_output`` as a dataset item
+    (``feature_type``'s file) and run through ``run_inference`` in batches
+    of ``batch_size`` (the config's ``training.inference.batch_size``), as
+    the JAX pipeline's file path does: an object without a
+    ``sample_{k}/material_grid.npy`` gets an occupancy placeholder first, so
+    its ``_gt.npy`` and ``metrics.json`` carry no meaning."""
     render_output = Path(render_output)
     mapped_ply = render_output / f"sample_{sample_id}" / "mapped_preds.ply"
     if mapped_ply.exists() and not overwrite:
@@ -236,22 +234,58 @@ def generate_neural_segmentation(
             f"U-Net checkpoints not found under {seg_ckpt_dir} / {cont_ckpt_dir}")
 
     art = voxel_artifact_paths(str(render_output))
-    feats = np.load(art["features"]) if features_dev is None else features_dev
-    want = (grid_size,) * 3 + (feature_channels,)
-    if tuple(feats.shape) != want:
-        raise ValueError(f"voxel grid {tuple(feats.shape)} != {want} expected by the U-Net")
-    infer = CombinedInference(
-        load_params(seg_ckpt), load_params(cont_ckpt), grid_size=grid_size,
-        feature_channels=feature_channels, num_classes=num_classes,
-        background_id=background_id, model_kwargs=model_kwargs, device=device)
-    infer_single_device(infer, torch.as_tensor(feats, device=infer.device),
-                        np.load(art["mask"]), obj_id, sample_id, neural_dir)
+    if features_dev is not None:
+        want = (grid_size,) * 3 + (feature_channels,)
+        if tuple(features_dev.shape) != want:
+            raise ValueError(f"voxel grid {tuple(features_dev.shape)} != {want} expected by "
+                             f"the U-Net")
+        infer = CombinedInference(
+            load_params(seg_ckpt), load_params(cont_ckpt), grid_size=grid_size,
+            feature_channels=feature_channels, num_classes=num_classes,
+            background_id=background_id, model_kwargs=model_kwargs, device=device)
+        infer_single_device(infer, torch.as_tensor(features_dev, device=infer.device),
+                            np.load(art["mask"]), obj_id, sample_id, neural_dir)
+    else:
+        _write_placeholder_material_grid(render_output, art["mask"], sample_id,
+                                         background_id)
+        dataset = MaterialVoxelDataset(
+            render_output.parent, ranges, grid_size=grid_size,
+            feature_channels=feature_channels, num_material_classes=num_classes,
+            background_id=background_id, feature_type=feature_type, sample_id=sample_id,
+            enforce_mask_consistency=False)  # inference has no GT material grid
+        obj_indices = [i for i, s in enumerate(dataset.samples) if s.obj_id == obj_id]
+        if not obj_indices:
+            raise RuntimeError(
+                f"{obj_id} failed dataset validation (wrong feature dim or grid size? "
+                f"expected ({grid_size}^3, {feature_channels}))")
+        run_inference(dataset, seg_ckpt, cont_ckpt, neural_dir, batch_size=batch_size,
+                      indices=obj_indices, model_kwargs=model_kwargs, device=device)
     mapped_ply.parent.mkdir(parents=True, exist_ok=True)
     map_pred_to_ply(
         pred_path=Path(neural_dir) / obj_id / f"sample_{sample_id}_pred.npy",
         mask_path=art["mask"], grid_feature_path=art["npz"],
         output_path=mapped_ply, obj_id=obj_id, ranges=ranges)
     return mapped_ply
+
+
+def _write_placeholder_material_grid(render_output: Path, mask_path, sample_id: int,
+                                     background_id: int) -> None:
+    """Fresh (unlabeled) objects have no GT material_grid.npy, which the
+    dataset's file contract needs: write one from the occupancy mask
+    (background outside it), as the JAX pipeline does (pipeline.py:268-281)."""
+    mat_fp = render_output / f"sample_{sample_id}" / "material_grid.npy"
+    if mat_fp.exists() or not Path(mask_path).exists():
+        return
+    occ = np.load(mask_path) > 0
+    placeholder = np.zeros((*occ.shape, 4), np.float32)
+    placeholder[..., 0] = np.where(occ, 1000.0, 0.0)   # density
+    placeholder[..., 1] = np.where(occ, 1e5, 0.0)      # E
+    placeholder[..., 2] = np.where(occ, 0.3, 0.0)      # nu
+    placeholder[..., 3] = np.where(occ, 0, background_id)
+    mat_fp.parent.mkdir(parents=True, exist_ok=True)
+    np.save(mat_fp, placeholder)
+    logging.info("[neural] no GT material grid; wrote occupancy placeholder (metrics will "
+                 "be meaningless)")
 
 
 def run_physics_simulation(
@@ -335,7 +369,8 @@ def main(argv=None, device: str | torch.device = "cuda"):
         feature_channels=tr.feature_channels, num_classes=tr.num_material_classes,
         background_id=tr.background_id, model_kwargs=model_kwargs,
         overwrite=bool(cfg.overwrite), device=device,
-        features_dev=(vox or {}).get("features_dev"))
+        features_dev=(vox or {}).get("features_dev"), feature_type=tr.feature_type,
+        batch_size=tr.inference.batch_size)
     # config resolution of pipeline.py:338-348
     if cfg.get("is_objaverse_object", True):
         sim_cfg = (Path(cfg.paths.physgaussian_config_dir) / "objaverse"

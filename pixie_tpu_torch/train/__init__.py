@@ -1,1 +1,2 @@
-"""Combined U-Net inference."""
+"""U-Net training and inference: the dataset, normalization ranges, the
+trainer, combined inference and its reports."""

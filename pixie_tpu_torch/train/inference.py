@@ -4,8 +4,15 @@ trainer/inference_combined.py).
 
 Checkpoints are the reference's ``epoch_*.pth`` files, read natively
 (``{"model_state_dict": ...}``, DDP ``module.`` prefixes stripped).  The two
-nets run as two ``nn.Module``s; the JAX package's lane-packed joint net
-(models/joint.py) is a TPU formulation and is not ported.
+nets run as two ``nn.Module``s on one card; the JAX package's lane-packed
+joint net (models/joint.py) and its padding of a batch to the mesh's dp
+axis are TPU formulations and are not ported.
+
+``run_inference`` is the batched pass over a dataset: per-object artifacts
+(sample_{k}_pred.npy with 3 continuous channels + one-hot argmax classes,
+sample_{k}_gt.npy, sample_{k}_mask.npy, sample_{k}_info.json;
+inference_combined.py:173-217) and the metrics.json /
+per_class_metrics.json reports (pixie/metrics.py).
 
 Precision: both nets run in float32.  PyTorch runs float32 convolutions
 through cuDNN in TF32 by default (``torch.backends.cudnn.allow_tf32``), which
@@ -24,6 +31,8 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch.models.unet3d import RegressionUNet, SegmentationUNet
+from pixie_tpu_torch.train.data import MaterialVoxelDataset
+from pixie_tpu_torch.utils.metrics import mean_se_ci90
 
 
 def load_params(path: str | Path) -> dict[str, torch.Tensor]:
@@ -94,6 +103,88 @@ class CombinedInference:
         return np.concatenate([cont, onehot], axis=0)
 
 
+def run_inference(
+    dataset: MaterialVoxelDataset,
+    seg_ckpt: str | Path,
+    cont_ckpt: str | Path,
+    output_dir: str | Path,
+    batch_size: int = 4,
+    indices=None,
+    model_kwargs: dict | None = None,
+    obj_class_lookup=None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Full inference pass: per-object artifacts + metrics report
+    (pixie_tpu/train/inference.py:run_inference)."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+
+    infer = CombinedInference(
+        load_params(seg_ckpt), load_params(cont_ckpt),
+        grid_size=dataset.grid_size,
+        feature_channels=dataset.feature_channels,
+        num_classes=dataset.num_material_classes,
+        background_id=dataset.background_id,
+        model_kwargs=model_kwargs,
+        device=device,
+    )
+
+    per_object = {}
+    for feat, cont_gt, mat_id, mask, infos, n_valid in dataset.batches(
+        batch_size, indices, pad_to_batch=True
+    ):
+        # the rows pad_to_batch repeated are not run: one device needs no
+        # batch of a fixed size (JAX runs and drops them)
+        seg_logits, cont_pred = infer.predict(feat[:n_valid])
+
+        for i in range(n_valid):
+            obj_id = infos[i]["obj_id"]
+            sample_id = infos[i]["sample_id"]
+            fg = mask[i]
+            diff_sq = (cont_pred[i] - cont_gt[i]) ** 2
+
+            pred_cls = np.argmax(seg_logits[i], axis=-1)
+            valid = fg > 0
+            acc = float(
+                ((pred_cls == mat_id[i]) & valid).sum() / max(valid.sum(), 1)
+            )
+            dens = float(diff_sq[..., 0][valid].mean()) if valid.any() else 0.0
+            yng = float(diff_sq[..., 1][valid].mean()) if valid.any() else 0.0
+            poi = float(diff_sq[..., 2][valid].mean()) if valid.any() else 0.0
+            per_object[obj_id] = {
+                "seg_acc": acc,
+                "density_mse": dens,
+                "youngs_mse": yng,
+                "poisson_mse": poi,
+                "cont_mse": (dens + yng + poi) / 3.0,
+            }
+
+            obj_dir = output_dir / obj_id
+            obj_dir.mkdir(exist_ok=True)
+            combined = infer.combined_prediction(seg_logits[i], cont_pred[i])
+            np.save(obj_dir / f"sample_{sample_id}_pred.npy", combined)
+            gt = np.concatenate(
+                [np.moveaxis(cont_gt[i], -1, 0), mat_id[i][None].astype(np.float32)], 0
+            )
+            np.save(obj_dir / f"sample_{sample_id}_gt.npy", gt)
+            np.save(obj_dir / f"sample_{sample_id}_mask.npy", mask[i])
+            with open(obj_dir / f"sample_{sample_id}_info.json", "w") as f:
+                json.dump(infos[i], f)
+
+    report = generate_metrics_report(per_object)
+    (output_dir / "metrics.json").write_text(json.dumps(report, indent=2))
+    (output_dir / "evaluated_obj_ids.json").write_text(
+        json.dumps(sorted(per_object.keys()))
+    )
+    if obj_class_lookup is not None:
+        per_class = generate_class_report(per_object, obj_class_lookup)
+        (output_dir / "per_class_metrics.json").write_text(
+            json.dumps(per_class, indent=2)
+        )
+    logging.info("Inference complete: %d objects -> %s", len(per_object), output_dir)
+    return report
+
+
 def infer_single_device(
     infer: CombinedInference,
     feat_dev,
@@ -116,3 +207,27 @@ def infer_single_device(
          "source": "device-resident voxel grid (pixie_tpu_torch)"}))
     logging.info("Device-resident inference: %s -> %s", obj_id, pred_path)
     return pred_path
+
+
+def generate_metrics_report(per_object: dict) -> dict:
+    """Aggregate mean +/- SE / CI90 (pixie/metrics.py:333-415)."""
+    report: dict = {"n_objects": len(per_object), "per_object": per_object}
+    if per_object:
+        keys = next(iter(per_object.values())).keys()
+        for k in keys:
+            report[k] = mean_se_ci90(np.array([m[k] for m in per_object.values()]))
+    return report
+
+
+def generate_class_report(per_object: dict, obj_class_lookup) -> dict:
+    """Per-class metric tables (generate_class_table, pixie/metrics.py:226)."""
+    by_class: dict[str, list] = {}
+    for obj_id, m in per_object.items():
+        by_class.setdefault(obj_class_lookup(obj_id) or "unknown", []).append(m)
+    out = {}
+    for cls, ms in sorted(by_class.items()):
+        entry = {"n_objects": len(ms)}
+        for k in ms[0]:
+            entry[k] = mean_se_ci90(np.array([m[k] for m in ms]))
+        out[cls] = entry
+    return out

@@ -27,8 +27,11 @@ agree exactly.  The voxelizer stage (plain PyTorch) is held against the
 CPU: the occupancy mask bit for bit, float16 artifacts within one ulp,
 float32 field outputs within 1e-5 of the largest value.  The field
 renders, their gradients and the CLIP tower (plain PyTorch) are held
-against the CPU by the bounds their CPU tests hold them to JAX by.  This
-file imports no JAX package module.
+against the CPU by the bounds their CPU tests hold them to JAX by.  A U-Net
+training step (plain PyTorch, TF32 off) is held against the CPU's, and DDP
+over NCCL (two or more cards) against one process on the whole batch,
+each gradient within 1e-3 of its scale.  This file imports no JAX package
+module.
 """
 
 import numpy as np
@@ -960,3 +963,70 @@ def test_clip_tower_on_cuda_matches_cpu(cuda_device, dtype):
     got = C.extract_clip_features_torch(images, params, cfg, dtype=dtype, device=cuda_device)
     rtol = 1e-5 if dtype is None else 2e-2
     np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())
+
+
+def _grad_err(got: dict, want: dict, floor: float = 1e-3) -> float:
+    """Worst gradient difference over each tensor's largest |value| (at
+    least ``floor`` of the net's largest: a bias ahead of a norm has
+    gradient 0 in exact arithmetic, rounding noise in both runs)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[k].cpu() - w.cpu()).abs().max())
+               / max(float(w.abs().max()), floor * top) for k, w in want.items())
+
+
+def test_unet_train_step_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """One Trainer step of each U-Net (SMALL widths) on the card and on the
+    CPU from the same weights and batch, TF32 off: the loss within 1e-5,
+    every gradient within 1e-3 of its scale (cuDNN's and oneDNN's float32
+    sums in other orders), and the accuracy equal."""
+    from unet_train_parity import SMALL, ddp_batches, seeded_params
+
+    from pixie_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    _, batches = ddp_batches(tmp_path, np.random.default_rng(3))
+    feat, mat_id, mask = batches[0]
+    cont = np.random.default_rng(4).uniform(-1, 1, mat_id.shape + (3,)).astype(np.float32)
+    for mode, target in (("discrete", mat_id), ("continuous", cont)):
+        cfg = TrainConfig(mode=mode, batch_size=4, **SMALL)
+        params = seeded_params(cfg, seed=5)
+        runs = []
+        for dev in (cuda_device, torch.device("cpu")):
+            trainer = Trainer(cfg, device=dev)
+            trainer.setup(1, params=params)
+            runs.append((trainer.train_step((feat, target, mask)),
+                         {n: p.grad for n, p in trainer.model.named_parameters()}))
+        ((loss, aux), grads), ((want_loss, want_aux), want) = runs
+        assert loss == pytest.approx(want_loss, rel=1e-5)
+        assert aux.keys() == want_aux.keys()
+        for k in aux:
+            assert aux[k] == pytest.approx(want_aux[k], rel=1e-5), k
+        assert _grad_err(grads, want) <= 1e-3
+
+
+def test_ddp_nccl_gradient_equals_one_process(cuda_device, tmp_path):
+    """DDP over NCCL, one card a rank (up to 4 cards; skipped on one): the
+    ranks' averaged gradient against one process's on the whole batch on
+    the first card, for a batch whose rows hold different foreground
+    counts and for an odd batch (a zero-weight pad row), within 1e-3 of
+    each gradient's scale (cuDNN's sums differ between batch sizes)."""
+    from unet_train_parity import SMALL, ddp_batches, run_ddp, seeded_params
+
+    from pixie_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs 2 or more cards (NCCL DDP)")
+    cfg_kw = dict(mode="discrete", batch_size=4, **SMALL)
+    params = seeded_params(TrainConfig(**cfg_kw), seed=8)
+    batch_paths, batches = ddp_batches(tmp_path, np.random.default_rng(9))
+    ranks = run_ddp(tmp_path, world, cfg_kw, params, batch_paths, device="cuda")
+    assert [r[0]["device"] for r in ranks] == [f"cuda:{i}" for i in range(world)]
+    for i, batch in enumerate(batches):
+        one = Trainer(TrainConfig(**cfg_kw), device=cuda_device)
+        one.setup(1, params=params)
+        loss, _ = one.train_step(batch)
+        want = {n: p.grad for n, p in one.model.named_parameters()}
+        for r in ranks:
+            assert r[i]["world"] == world
+            assert r[i]["loss"] == pytest.approx(loss, rel=1e-5)
+            assert _grad_err(r[i]["grads"], want) <= 1e-3

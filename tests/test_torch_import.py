@@ -44,7 +44,10 @@ def test_module_list_covers_the_slice():
               "pixie_tpu_torch.recon.hashgrid", "pixie_tpu_torch.recon.mxu_hash",
               "pixie_tpu_torch.recon.field", "pixie_tpu_torch.recon.field_adapter",
               "pixie_tpu_torch.recon.tcnn_compat", "pixie_tpu_torch.voxel.voxelize",
-              "pixie_tpu_torch.recon.clip_tower", "pixie_tpu_torch.recon.clip_features"):
+              "pixie_tpu_torch.recon.clip_tower", "pixie_tpu_torch.recon.clip_features",
+              "pixie_tpu_torch.train.trainer", "pixie_tpu_torch.train.data",
+              "pixie_tpu_torch.train.inspect_ranges", "pixie_tpu_torch.train.inference",
+              "pixie_tpu_torch.parallel", "pixie_tpu_torch.parallel.mesh"):
         assert m in MODULES
 
 
@@ -55,7 +58,9 @@ def test_no_jax_after_importing_every_module():
 @pytest.mark.parametrize("entry", ["pixie_tpu_torch.pipeline", "pixie_tpu_torch.sim.driver",
                                    "pixie_tpu_torch.recon.train_field",
                                    "pixie_tpu_torch.scripts.probe_kernel_ablation",
-                                   "pixie_tpu_torch.scripts.probe_vmem_gather"])
+                                   "pixie_tpu_torch.scripts.probe_vmem_gather",
+                                   "pixie_tpu_torch.train.trainer",
+                                   "pixie_tpu_torch.train.inspect_ranges"])
 def test_no_jax_from_entry_point(entry):
     assert _import_in_fresh_interpreter([entry]) == []
 
