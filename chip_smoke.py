@@ -126,6 +126,29 @@ Phases (any failure exits non-zero):
                 (a new object, occupancy placeholder) -> mapped_preds.ply; one
                 step of each net on the card against the CPU at a reduced
                 width (UNET_CHECK)
+ 10. vlm      — the VLM labeling path at full width (between phases 7 and 9,
+                inside phase 5's temporary directory): (a) a seeded
+                ViT-L/14-336 CLIPModel snapshot (vision and text keys, a
+                seeded 49,408-token BPE vocab whose merges are learned on the
+                queries) in a temporary hub cache; the text tower on the card
+                against encode_text_queries on the CPU, ms a call, load s;
+                (b) pipeline.generate_vlm_segmentation with MockVLM's canned
+                replies (a tree, 3 parts with ranges, a constraint, 3 query
+                sets; the critic picks set 1), n_samples 3, on phase 5's
+                views, phase 7's field (re-voxelized at the config's 200^3)
+                and a 64^3 x 768 grid whose occupied voxels lie in three
+                sectors, each its set-1 query's embedding plus seeded noise:
+                the fine npz and npy exist (no fallback to 64^3), a heatmap
+                a query of each set, every sample chose set 1, the material
+                ids match the sectors on >= 99 % of occupied voxels, the label
+                map equals clip_part_segmentation on the CPU, the fine grid's
+                similarities at 1,000 seeded voxels a set within 1e-5 of the
+                CPU's; seconds by part, peak memory, the npy's bytes;
+                (c) sample 0's segmented_semantics.ply through 1 point-cloud
+                frame of the tree config (B1 and B2 400 launches each);
+                (d) python -m pixie_tpu_torch.render with modes nerf, gs and
+                sim in a subprocess on phase 5's checkpoint, phase 7's field
+                and (c)'s frame: every PNG written and not blank, s a view
 The line before the last is the kernel JSON (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs,
@@ -245,6 +268,19 @@ UNET_OBJECTS, UNET_STEPS, UNET_PROFILE = 5, 8, (3, 5)
 UNET_CHECK = dict(grid_size=32, model_channels=16, num_res_blocks=1, channel_mult=(1, 1, 2, 4),
                   batch_size=2)
 UNET_LOSS_RTOL, UNET_GRAD_RTOL, UNET_GRAD_FLOOR = 1e-5, 1e-3, 1e-3
+# phase 10: MockVLM's stage-1 query sets (the critic picks VLM_BEST) and the
+# material id of each part (stationary, metal, jelly); the seeded vocab's
+# merges (the real layout: 49,408 tokens); the card's text embeddings
+# against the CPU's within 1e-5 of the largest |value| (float32, TF32 off);
+# the fine grid's similarities (cosines, |s| <= 1) against the CPU's within
+# 1e-5; the 64^3 grid's features are their sector's query embedding plus
+# N(0, VLM_NOISE x the distance of set 1's closest pair of embeddings) a
+# component, so a part's score leads the next by ~15 noise deviations; the
+# share of occupied voxels whose material id must match their sector
+VLM_QUERIES = (("pot", "trunk", "leaves"), ("planter", "stem", "foliage"),
+               ("base", "wood", "green"))
+VLM_BEST, VLM_MATERIALS, VLM_MERGES = 1, (6, 1, 0), 48_894
+VLM_TEXT_RTOL, VLM_SIM_ATOL, VLM_NOISE, VLM_MATCH = 1e-5, 1e-5, 1 / 30, 0.99
 # a (pixel, splat) pair of the blend: offsets, conic power, exp, alpha and its
 # gate (16), as every pair evaluates them; the blend of a hit is not counted
 BLEND_PAIR_OPS = 16
@@ -1715,10 +1751,12 @@ def _fp16_within_ulp(got, want) -> int:
 
 
 def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = None,
-                   fit_steps: int = VOX_FIT_STEPS, n_check: int = 1000) -> dict:
+                   fit_steps: int = VOX_FIT_STEPS, n_check: int = 1000,
+                   field_dir: Path | None = None) -> dict:
     """The voxelizer stage from a field checkpoint through the U-Nets, the
     map and one point-cloud frame, then the f3rm checkpoint's grid query.
-    Returns the path's launches."""
+    The field checkpoint is saved to ``field_dir`` (kept for phase 10) when
+    one is given.  Returns the path's launches."""
     import numpy as np
     import torch
 
@@ -1765,7 +1803,7 @@ def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = 
               f"alpha threshold (ball {int(inside.sum())})", flush=True)
         if not mask_range[0] <= n_alpha <= mask_range[1]:
             fail(f"the fitted density holds {n_alpha} voxels, outside {mask_range}")
-        nerf_out = root / "f3rm"
+        nerf_out = field_dir or root / "f3rm"
         save_field_checkpoint(nerf_out, {"nerf": nerf, "feat": feat}, feature_dim=fc)
         del nerf, pts01, alpha
         _unet_checkpoints(root, d, fc, model_kwargs)
@@ -1865,18 +1903,81 @@ def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = 
     return launches
 
 
-def _clip_snapshot(path: Path, dev, seed: int = 0) -> None:
-    """A seeded ViT-L/14-336 CLIPVisionModel snapshot in ``path``:
-    config.json and model.safetensors under HF's keys, at HF's initial
-    scales (CLIPPreTrainedModel._init_weights), written from the card."""
+def _bpe_vocab(corpus, n_merges: int = VLM_MERGES, seed: int = 0):
+    """A seeded CLIP BPE vocabulary of the real layout: the 256 byte
+    symbols, the same with </w>, one token a merge, <|startoftext|> and
+    <|endoftext|> (49,408 at 48,894 merges).  The merges are learned on
+    ``corpus`` first (most frequent pair first), so they fire on its words;
+    seeded merges of known tokens fill the list, at seeded ranks."""
+    import numpy as np
+
+    from pixie_tpu_torch.recon.clip_tokenizer import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    base = list(b2u.values())
+    tokens = set(base) | {v + "</w>" for v in base}
+    words = collections.Counter()
+    for text in corpus:
+        for w in text.lower().split():
+            sym = tuple(b2u[b] for b in w.encode("utf-8"))
+            words[sym[:-1] + (sym[-1] + "</w>",)] += 1
+    learned = []
+    while len(learned) < n_merges:
+        pairs = collections.Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = max(pairs, key=lambda pair: (pairs[pair], pair))
+        learned.append(best)
+        tokens.add(best[0] + best[1])
+        merged = collections.Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    rng = np.random.default_rng(seed)
+    pool, fill = sorted(tokens), []
+    while len(learned) + len(fill) < n_merges:
+        a, b = pool[rng.integers(len(pool))], pool[rng.integers(len(pool))]
+        if a.endswith("</w>") or a + b in tokens:
+            continue
+        fill.append((a, b))
+        tokens.add(a + b)
+        pool.append(a + b)
+    ranks = np.sort(rng.choice(n_merges, len(learned), replace=False))
+    merges, it_l, it_f = [], iter(learned), iter(fill)
+    learned_at = set(ranks.tolist())
+    for r in range(n_merges):
+        merges.append(next(it_l) if r in learned_at else next(it_f))
+    vocab = base + [v + "</w>" for v in base] + [a + b for a, b in merges]
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    return {tok: i for i, tok in enumerate(vocab)}, merges, len(learned)
+
+
+def _clip_snapshot(path: Path, dev, seed: int = 0, queries=None) -> int:
+    """A seeded ViT-L/14-336 snapshot in ``path``: config.json and
+    model.safetensors under HF's keys, at HF's initial scales
+    (CLIPPreTrainedModel._init_weights), written from the card; a
+    CLIPVisionModel, or with ``queries`` a CLIPModel: the text tower's keys
+    and text_config too (eos_token_id 2, as OpenAI's checkpoints carry it),
+    and a seeded vocab.json / merges.txt whose merges are learned on the
+    queries.  Returns the number of learned merges (0 without queries)."""
     import numpy as np
     import torch
 
-    from pixie_tpu_torch.recon.clip_tower import CLIPVisionConfig
+    from pixie_tpu_torch.recon.clip_tower import CLIPTextConfig, CLIPVisionConfig
 
     c = CLIPVisionConfig.vit_l_14_336()
     hid, n_layers, p = c.hidden_size, c.num_hidden_layers, c.patch_size
-    in_std, out_std, fc_std = hid ** -0.5 * (2 * n_layers) ** -0.5, hid ** -0.5, (2 * hid) ** -0.5
     gen = torch.Generator(device=dev).manual_seed(seed)
     shapes = {"vision_model.embeddings.class_embedding": ((hid,), hid ** -0.5),
               "vision_model.embeddings.patch_embedding.weight": ((hid, 3, p, p), 0.02),
@@ -1885,25 +1986,56 @@ def _clip_snapshot(path: Path, dev, seed: int = 0) -> None:
     for name in ("pre_layrnorm", "post_layernorm"):
         shapes[f"vision_model.{name}.weight"] = ((hid,), None)
         shapes[f"vision_model.{name}.bias"] = ((hid,), 0.0)
-    for i in range(n_layers):
-        lp = f"vision_model.encoder.layers.{i}."
-        for n, std in (("q", in_std), ("k", in_std), ("v", in_std), ("out", out_std)):
-            shapes[f"{lp}self_attn.{n}_proj.weight"] = ((hid, hid), std)
-            shapes[f"{lp}self_attn.{n}_proj.bias"] = ((hid,), 0.0)
-        for n in ("layer_norm1", "layer_norm2"):
-            shapes[f"{lp}{n}.weight"] = ((hid,), None)
-            shapes[f"{lp}{n}.bias"] = ((hid,), 0.0)
-        shapes[f"{lp}mlp.fc1.weight"] = ((c.intermediate_size, hid), fc_std)
-        shapes[f"{lp}mlp.fc1.bias"] = ((c.intermediate_size,), 0.0)
-        shapes[f"{lp}mlp.fc2.weight"] = ((hid, c.intermediate_size), in_std)
-        shapes[f"{lp}mlp.fc2.bias"] = ((hid,), 0.0)
+
+    def encoder(pref, hid, inter, n_layers):
+        in_std, out_std = hid ** -0.5 * (2 * n_layers) ** -0.5, hid ** -0.5
+        for i in range(n_layers):
+            lp = f"{pref}encoder.layers.{i}."
+            for n, std in (("q", in_std), ("k", in_std), ("v", in_std), ("out", out_std)):
+                shapes[f"{lp}self_attn.{n}_proj.weight"] = ((hid, hid), std)
+                shapes[f"{lp}self_attn.{n}_proj.bias"] = ((hid,), 0.0)
+            for n in ("layer_norm1", "layer_norm2"):
+                shapes[f"{lp}{n}.weight"] = ((hid,), None)
+                shapes[f"{lp}{n}.bias"] = ((hid,), 0.0)
+            shapes[f"{lp}mlp.fc1.weight"] = ((inter, hid), (2 * hid) ** -0.5)
+            shapes[f"{lp}mlp.fc1.bias"] = ((inter,), 0.0)
+            shapes[f"{lp}mlp.fc2.weight"] = ((hid, inter), in_std)
+            shapes[f"{lp}mlp.fc2.bias"] = ((hid,), 0.0)
+
+    encoder("vision_model.", hid, c.intermediate_size, n_layers)
+    vision_cfg = {"hidden_size": hid, "intermediate_size": c.intermediate_size,
+                  "num_hidden_layers": n_layers, "num_attention_heads": c.num_attention_heads,
+                  "patch_size": p, "image_size": c.image_size, "layer_norm_eps": c.layer_norm_eps,
+                  "hidden_act": "quick_gelu", "num_channels": 3}
+    config = dict(vision_cfg, architectures=["CLIPVisionModel"], model_type="clip_vision_model")
     path.mkdir(parents=True)
-    (path / "config.json").write_text(json.dumps({
-        "architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
-        "hidden_size": hid, "intermediate_size": c.intermediate_size,
-        "num_hidden_layers": n_layers, "num_attention_heads": c.num_attention_heads,
-        "patch_size": p, "image_size": c.image_size, "layer_norm_eps": c.layer_norm_eps,
-        "hidden_act": "quick_gelu", "num_channels": 3}))
+    n_learned = 0
+    if queries is not None:
+        tc = CLIPTextConfig.vit_l_14_336()
+        vocab, merges, n_learned = _bpe_vocab(queries, seed=seed)
+        (path / "vocab.json").write_text(json.dumps(vocab))
+        (path / "merges.txt").write_text(
+            "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+        th = tc.hidden_size
+        shapes["text_model.embeddings.token_embedding.weight"] = ((len(vocab), th), 0.02)
+        shapes["text_model.embeddings.position_embedding.weight"] = (
+            (tc.max_position_embeddings, th), 0.02)
+        encoder("text_model.", th, tc.intermediate_size, tc.num_hidden_layers)
+        shapes["text_model.final_layer_norm.weight"] = ((th,), None)
+        shapes["text_model.final_layer_norm.bias"] = ((th,), 0.0)
+        shapes["text_projection.weight"] = ((tc.projection_dim, th), th ** -0.5)
+        shapes["visual_projection.weight"] = ((tc.projection_dim, hid), hid ** -0.5)
+        config = {"architectures": ["CLIPModel"], "model_type": "clip",
+                  "projection_dim": tc.projection_dim, "vision_config": vision_cfg,
+                  "text_config": {
+                      "vocab_size": len(vocab), "hidden_size": th,
+                      "intermediate_size": tc.intermediate_size,
+                      "num_hidden_layers": tc.num_hidden_layers,
+                      "num_attention_heads": tc.num_attention_heads,
+                      "max_position_embeddings": tc.max_position_embeddings,
+                      "layer_norm_eps": tc.layer_norm_eps, "hidden_act": "quick_gelu",
+                      "bos_token_id": 0, "pad_token_id": 1, "eos_token_id": tc.eos_token_id}}
+    (path / "config.json").write_text(json.dumps(config))
     header, offset = {}, 0
     for name, (shape, _) in shapes.items():
         n = 4 * int(np.prod(shape))
@@ -1918,6 +2050,7 @@ def _clip_snapshot(path: Path, dev, seed: int = 0) -> None:
             else:
                 t = torch.randn(shape, generator=gen, device=dev) * std
             f.write(t.cpu().numpy().astype("<f4").tobytes())
+    return n_learned
 
 
 def _profile_per_step(prof, n_steps: int):
@@ -2312,6 +2445,322 @@ def phase_unet_train(dev, d: int = 64, fc: int = 768, n_objects: int = UNET_OBJE
     return launches
 
 
+VLM_SEG_REPLY = json.dumps({
+    "material_dict": {
+        "pot": {"density": [300, 500], "E": [5e5, 1e6], "nu": [0.3, 0.4], "material_id": 6},
+        "trunk": {"density": [400, 800], "E": [1e5, 5e5], "nu": [0.3, 0.4], "material_id": 1},
+        "leaves": {"density": [100, 300], "E": [1e4, 5e4], "nu": [0.3, 0.4], "material_id": 0},
+    },
+    "reasoning": "a potted tree: a stationary pot, a stiff trunk, soft leaves",
+    "constraints": 'assert material_dict["leaves"]["E"] < material_dict["trunk"]["E"]',
+    "all_queries": [list(qs) for qs in VLM_QUERIES]})
+VLM_CRITIC_REPLY = json.dumps({"scores": {"0": 5, "1": 9, "2": 4}, "best_query": VLM_BEST,
+                               "reasoning": "set 1 separates the parts"})
+
+
+@contextlib.contextmanager
+def _spy(calls: dict, targets, sync):
+    """Wrap each (owner, name, keep) so that a call appends (seconds,
+    keep(args, result)) to calls["<owner>.<name>"] (the owner a module's
+    last name or a class), ``sync()`` run before the clock stops; the
+    originals come back on exit."""
+    saved = []
+    for owner, name, keep in targets:
+        fn = getattr(owner, name)
+        key = f"{owner.__name__.rsplit('.', 1)[-1]}.{name}"
+
+        def wrap(*a, _fn=fn, _key=key, _keep=keep, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            sync()
+            calls[_key].append((time.perf_counter() - t0, _keep(a, out)))
+            return out
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrap)
+    try:
+        yield calls
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _sector_grid(emb, d: int, noise: float, dev):
+    """(features (d,d,d,C) float16, mask (d,d,d) bool, sector (d,d,d)): a
+    ball of radius 0.45 in three sectors by azimuth, a sector's features its
+    row of ``emb`` plus N(0, noise) a component, zero outside."""
+    import numpy as np
+    import torch
+
+    ijk = np.stack(np.meshgrid(*[np.arange(d)] * 3, indexing="ij"), -1)
+    centred = (ijk + 0.5) / d - 0.5
+    mask = np.linalg.norm(centred, axis=-1) < 0.45
+    sector = np.digitize(np.arctan2(centred[..., 1], centred[..., 0]), [-np.pi / 3, np.pi / 3])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    e = torch.as_tensor(emb, device=dev)
+    f = e[torch.as_tensor(sector, device=dev)]
+    f = f + noise * torch.randn(f.shape, generator=gen, device=dev)
+    f = f * torch.as_tensor(mask, device=dev)[..., None]
+    return f.to(torch.float16).cpu().numpy(), mask, sector
+
+
+def phase_vlm(dev, capture: Path, gs_dir: Path, field_dir: Path, d: int = 64,
+              fine: int | None = None, n_check: int = 1000, render_views: int = 8) -> dict:
+    """The VLM labeling path at full width: (a) a seeded ViT-L/14-336
+    CLIPModel snapshot with a seeded 49,408-token BPE vocab, the text tower
+    on the card against the CPU; (b) the chain through
+    pipeline.generate_vlm_segmentation with MockVLM's canned replies on
+    phase 5's views, phase 7's field (re-voxelized at the config's
+    viz_grid_size, ``fine`` where given) and a 64^3 x 768 sector grid;
+    (c) sample 0's segmented_semantics.ply through 1 point-cloud frame of the
+    tree config; (d) python -m pixie_tpu_torch.render with modes nerf, gs and
+    sim in a subprocess.  Returns the path's launches (the chain and the
+    render launch none of the port's kernels)."""
+    import os
+    import re
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.config import compose
+    from pixie_tpu_torch.recon import clip_features
+    from pixie_tpu_torch.utils.io import read_ply
+    from pixie_tpu_torch.utils.paths import get_output_paths, resolve_paths, voxel_artifact_paths
+    from pixie_tpu_torch.vlm_labeler import stages
+    from pixie_tpu_torch.vlm_labeler.agent import MockVLM
+    from pixie_tpu_torch.voxel import segmentation, viz_segmentation, voxelize
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t_phase = time.time()
+    queries = [q for qs in VLM_QUERIES for q in qs]
+    best = list(VLM_QUERIES[VLM_BEST])
+    tree_cfg = HERE / "config" / "objaverse" / "custom_tree_config.json"
+    with tempfile.TemporaryDirectory(prefix="pixie_smoke_vlm_") as tmp:
+        root = Path(tmp)
+        # (a) the CLIP text encoder: seeded snapshot, card vs CPU
+        t0 = time.time()
+        hub = root / "hub"
+        n_learned = _clip_snapshot(
+            hub / ("models--" + clip_features.CLIPArgs.model_name.replace("/", "--"))
+            / "snapshots" / "seeded", dev, seed=2, queries=queries)
+        os.environ["HF_HUB_CACHE"] = str(hub)
+        snap_s = time.time() - t0
+        sync()
+        t0 = time.time()
+        enc = clip_features.CLIPTextEncoder(device=dev)
+        sync()
+        load_s = time.time() - t0
+        call_ms = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            emb = enc(queries)
+            call_ms.append(1e3 * (time.perf_counter() - t0))
+        ids = enc.tokenizer(queries)
+        n_bpe = [int((r != enc.tokenizer.pad_id).sum()) - 1 for r in ids]   # less the BOS
+        t0 = time.time()
+        cpu_emb = clip_features.encode_text_queries(queries, device="cpu")
+        cpu_s = time.time() - t0
+        err, scale = float(np.abs(emb - cpu_emb).max()), float(np.abs(cpu_emb).max())
+        n_params = sum(p.numel() for p in enc.tower.parameters())
+        print(f"vlm: CLIPModel snapshot (ViT-L/14-336 vision + text, {len(enc.tokenizer.encoder)}"
+              f"-token vocab, {len(enc.tokenizer.bpe_ranks)} merges of which {n_learned} learned "
+              f"on the queries) written in {snap_s:.2f} s; text tower {n_params} parameters "
+              f"loaded onto the card in {load_s:.2f} s; encode {len(queries)} queries "
+              f"{statistics.median(call_ms):.2f} ms a call (median of 5, synchronized; "
+              f"ids {ids.shape}, BPE tokens a query {n_bpe}); "
+              f"encode_text_queries on the CPU {cpu_s:.2f} s with the load; card vs CPU "
+              f"max_abs_err {err:.3e} of max |value| {scale:.3e} (tol "
+              f"{VLM_TEXT_RTOL * scale:.3e})", flush=True)
+        if emb.shape != (len(queries), 768) or not np.isfinite(emb).all() or \
+                not np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-5):
+            fail(f"text embeddings {emb.shape} not ({len(queries)}, 768) of norm 1")
+        if not err <= VLM_TEXT_RTOL * scale:
+            fail("the card's text embeddings disagree with the CPU's")
+        if any(n >= len(q.encode()) for n, q in zip(n_bpe, queries)):
+            fail("the seeded merges do not fire on the queries")
+        del enc
+
+        # (b) the chain, from the views, the field and a 64^3 x 768 sector grid
+        obj = "smokeobj"
+        over = [f"obj_id={obj}", "obj_class=tree", "material_mode=vlm", "+vlm_model=mock",
+                f"paths.base_path={root}"]
+        if fine is not None:
+            over.append(f"segmentation.viz_grid_size={fine}")
+        cfg = resolve_paths(compose(overrides=over))
+        fine = int(cfg.segmentation.viz_grid_size)
+        paths = get_output_paths(cfg, obj)
+        for key, src in (("data_dir", capture), ("nerf_output", field_dir), ("gs_output", gs_dir)):
+            Path(paths[key]).parent.mkdir(parents=True, exist_ok=True)
+            os.symlink(src, paths[key])
+        set_emb = emb[VLM_BEST * 3:VLM_BEST * 3 + 3]
+        dmin = min(float(np.linalg.norm(set_emb[i] - set_emb[j]))
+                   for i in range(3) for j in range(i + 1, 3))
+        t0 = time.time()
+        feats, mask, sector = _sector_grid(set_emb, d, VLM_NOISE * dmin, dev)
+        art = voxel_artifact_paths(paths["render_output"])
+        Path(paths["render_output"]).mkdir(parents=True)
+        np.save(art["features"], feats)
+        np.save(art["mask"], mask.astype(np.float32))
+        np.savez(art["npz"], min_bounds=np.full(3, -0.5, np.float32),
+                 max_bounds=np.full(3, 0.5, np.float32), grid_shape=np.array([d, d, d]),
+                 voxel_size=np.float32(1.0 / d))
+        del feats
+        print(f"vlm: {d}^3 x 768 sector grid ({int(mask.sum())} occupied voxels, noise "
+              f"{VLM_NOISE * dmin:.3e} a component; set {VLM_BEST}'s closest embeddings "
+              f"{dmin:.4e} apart) written in {time.time() - t0:.2f} s", flush=True)
+
+        calls = collections.defaultdict(list)
+        sims = []
+
+        def keep_sims(a, out):
+            sims.append((len(a[0]), np.asarray(a[1], np.float32).copy(), out[1]))
+
+        def none(a, out):
+            return None
+
+        targets = [
+            (voxelize, "extract_feature_voxel_grid", lambda a, out: out["timings"]),
+            (segmentation, "run_clip_similarity", keep_sims),
+            (viz_segmentation, "render_similarity_heatmaps", none),
+            (segmentation, "generate_material_segmentation", none),
+            (clip_features.CLIPTextEncoder, "__init__", none),
+            (stages.SegmentationAgent, "generate_prediction", none),
+            (stages.SegmentationCriticAgent, "generate_prediction", none),
+            (stages.MathSamplerAgent, "generate_prediction", none)]
+        backend = MockVLM([VLM_SEG_REPLY, VLM_CRITIC_REPLY])
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with _spy(calls, targets, sync):
+            ply = pipeline.generate_vlm_segmentation(cfg, paths, backend=backend, device=dev)
+        sync()
+        chain_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        render_out = Path(paths["render_output"])
+        fine_feat = render_out / f"clip_features_{fine}_features.npy"
+        fine_mask = np.load(render_out / f"clip_features_{fine}_mask.npy") > 0.5
+        n_fine = int(fine_mask.sum())
+        vox = calls["voxelize.extract_feature_voxel_grid"]
+        if len(vox) != 1 or not (render_out / f"clip_features_{fine}.npz").exists() or \
+                not fine_feat.exists():
+            fail(f"the {fine}^3 re-voxelization did not run or wrote no artifacts: the chain "
+                 f"fell back to the {d}^3 grid")
+        vox_s, timings = vox[0]
+        fine_sims = [s for s in sims if s[0] == n_fine]
+
+        def secs(key):
+            return [round(c[0], 3) for c in calls[key]]
+
+        print(f"vlm: pipeline.generate_vlm_segmentation {chain_s:.2f} s (3 samples); "
+              f"re-voxelize {fine}^3 {vox_s:.2f} s (the npy written), timings "
+              f"{ {k: round(v, 4) for k, v in timings.items()} }; {n_fine} occupied voxels of "
+              f"{fine_mask.size}; features npy {fine_feat.stat().st_size} bytes; similarity "
+              f"{secs('segmentation.run_clip_similarity')} s a call ({len(fine_sims)} on the "
+              f"fine grid, then the samples' on the {d}^3 grid); heatmaps "
+              f"{secs('viz_segmentation.render_similarity_heatmaps')} s a set; segmentation "
+              f"{secs('segmentation.generate_material_segmentation')} s a sample; text tower "
+              f"load {secs('CLIPTextEncoder.__init__')} s; stage 1 (vlm_seg) "
+              f"{secs('SegmentationAgent.generate_prediction')} s, stage 3 (critic) "
+              f"{secs('SegmentationCriticAgent.generate_prediction')} s, stage 4 (sampler) "
+              f"{secs('MathSamplerAgent.generate_prediction')} s; peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+
+        heat = [sorted((Path(paths["vlm_base_dir"]) / f"query_{i}").glob("similarity_*.png"))
+                for i in range(len(VLM_QUERIES))]
+        if [len(h) for h in heat] != [len(qs) for qs in VLM_QUERIES]:
+            fail(f"heatmaps {[len(h) for h in heat]}, expected one a query of each set")
+        for k in range(3):
+            chosen = json.loads((render_out / f"sample_{k}" / "chosen_vlm_results.json")
+                                .read_text())
+            if chosen["best_query"] != best or list(chosen["material_dict"]) != best:
+                fail(f"sample {k} chose {chosen['best_query']}, not set {VLM_BEST} {best}")
+        grid = np.load(render_out / "sample_0" / "material_grid.npy")
+        match = float((grid[..., 3][mask] == np.array(VLM_MATERIALS)[sector[mask]]).mean())
+        verts = read_ply(ply)["vertex"]
+        cpu_enc = clip_features.CLIPTextEncoder(device="cpu")
+        _, cpu_labels, _, _ = segmentation.clip_part_segmentation(
+            art["npz"], best, text_encoder=cpu_enc, device="cpu")
+        same_labels = np.array_equal(np.asarray(verts["part_label"]), cpu_labels)
+        os.environ.pop("HF_HUB_CACHE")
+        rng = np.random.default_rng(4)
+        flat = np.flatnonzero(fine_mask.ravel())
+        fine_rows = np.load(fine_feat, mmap_mode="r").reshape(len(fine_mask.ravel()), -1)
+        sim_err = []
+        for _, q_embs, s in fine_sims:
+            rows = np.sort(rng.choice(n_fine, min(n_check, n_fine), replace=False))
+            want = segmentation.run_clip_similarity(
+                np.asarray(fine_rows[flat[rows]], np.float32), q_embs, device="cpu")[1]
+            sim_err.append(float(np.abs(s[rows] - want).max()))
+        print(f"vlm: heatmaps {[len(h) for h in heat]}; every sample chose set {VLM_BEST} "
+              f"{best}; material ids match the sectors on {match:.5f} of {int(mask.sum())} "
+              f"occupied voxels; the card's {d}^3 label map "
+              f"{'equals' if same_labels else 'DIFFERS from'} clip_part_segmentation on the "
+              f"CPU ({np.bincount(cpu_labels, minlength=3).tolist()} voxels a part); {fine}^3 "
+              f"similarities at {n_check} seeded voxels a set: max_abs_err {sim_err} against the "
+              f"CPU (tol {VLM_SIM_ATOL})", flush=True)
+        if len(fine_sims) != len(VLM_QUERIES):
+            fail(f"{len(fine_sims)} similarity products on the fine grid, expected one a set")
+        if not match >= VLM_MATCH or not same_labels:
+            fail("the labels miss the sectors or differ from the CPU's")
+        if not max(sim_err) <= VLM_SIM_ATOL:
+            fail("the fine grid's similarities on the card disagree with the CPU's")
+        del grid, fine_rows, cpu_enc
+
+        # (c) sample 0's labelled cloud through one point-cloud frame
+        sim_out = Path(paths["physgaussian_output"]) / "sample_0"
+        info = pipeline.run_physics_simulation(ply, tree_cfg, sim_out, n_frames=1, device=dev)
+        launches = _read_counts()
+        s = info["substeps_per_frame"]
+        print(f"vlm: mpm (point cloud) of segmented_semantics.ply: {info['n_particles']} "
+              f"particles, 1 frame x {s} substeps, {info['substeps_per_sec']:.2f} substeps/s; "
+              f"launches {launches}", flush=True)
+        if launches != _counts(p2g=s, g2p=s) or not info["final_state_finite"] or \
+                info["n_particles"] != int(mask.sum()):
+            fail(f"vlm path launches {launches} != substeps run {s}, or the rollout of "
+                 f"{info['n_particles']} particles went non-finite")
+
+        # (d) the render entry point in a subprocess
+        args = [f"obj_id={obj}", "material_mode=vlm", f"paths.base_path={root}",
+                "physics.compile_video=false", "+render_modes=[nerf,gs,sim]"]
+        cmd = [sys.executable, "-m", "pixie_tpu_torch.render", *args] if dev.type == "cuda" \
+            else [sys.executable, "-c", "import sys; from pixie_tpu_torch.render import main; "
+                  f"main({args!r}, device='cpu')"]
+        t0 = time.time()
+        run = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+        render_s = time.time() - t0
+        if run.returncode != 0:
+            fail(f"python -m pixie_tpu_torch.render exited {run.returncode}: "
+                 f"{run.stderr.strip().splitlines()[-5:]}")
+        mode_s = {m: float(v) for m, v in re.findall(r"render mode (\w+): ([0-9.]+) s",
+                                                       run.stderr)}
+        pngs = {"nerf": sorted((render_out / "nerf_views").glob("*.png")),
+                "gs": sorted((render_out / "gs_views").glob("*.png")),
+                "sim": sorted((sim_out / "frames").glob("*.png"))}
+        shapes = {m: sorted({np.asarray(Image.open(p)).shape for p in ps})
+                  for m, ps in pngs.items()}
+        spread = {m: min(int(np.ptp(np.asarray(Image.open(p)))) for p in ps)
+                  for m, ps in pngs.items() if ps}
+        print(f"vlm: python -m pixie_tpu_torch.render (nerf, gs, sim) {render_s:.2f} s with "
+              f"the start; by mode {mode_s} s; s a view: "
+              f"{ {m: round(mode_s.get(m, 0.0) / max(len(pngs[m]), 1), 3) for m in pngs} }; "
+              f"PNGs { { m: len(p) for m, p in pngs.items() } } of shapes {shapes}, least "
+              f"value range {spread}", flush=True)
+        want_n = {"nerf": render_views, "gs": render_views, "sim": 1}
+        if {m: len(p) for m, p in pngs.items()} != want_n or set(mode_s) != set(want_n) or \
+                min(spread.values()) == 0:
+            fail(f"render.py wrote {[len(p) for p in pngs.values()]} PNGs (expected {want_n}), "
+                 f"or a blank one")
+        print(f"vlm: nvidia-smi {_smi()}", flush=True)
+    print(f"vlm: phase 10 in {time.time() - t_phase:.1f} s; launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -2333,13 +2782,16 @@ def main() -> int:
         paths = {"probes": probe_launches, "train": phase_train(dev, Path(tmp))}
         paths.update(phase_slice(dev, gs_dir=Path(tmp) / "gs"))
         paths["field"] = phase_field(dev, Path(tmp) / "capture")
-    paths["voxelize"] = phase_voxelize(dev)
+        paths["voxelize"] = phase_voxelize(dev, field_dir=Path(tmp) / "vlm_field")
+        paths["vlm"] = phase_vlm(dev, Path(tmp) / "capture", Path(tmp) / "gs",
+                                 Path(tmp) / "vlm_field")
     paths["unet_train"] = phase_unet_train(dev)
     print(f"launches by path: {paths}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pixie_tpu"))
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "flax", "pixie_tpu", "transformers", "regex"))
     if leaked:
-        fail(f"JAX or the JAX package was imported: {leaked[:5]}")
+        fail(f"JAX, the JAX package, transformers or regex was imported: {leaked[:5]}")
     rows = []
     for name, src, replaces in (
             ("p2g", "transfer.cu", "pixie_tpu/ops/transfer.py:361"),

@@ -8,17 +8,23 @@ names mirror the JAX package so each counterpart is easy to find:
                                   models, boundary conditions, material field,
                                   rollout driver, per-frame splat render)
   * ``pixie_tpu_torch.recon``   — 3D gaussians, projection and the tile
-                                  rasterizer (forward)
+                                  rasterizer, fields, CLIP's towers and
+                                  tokenizer
   * ``pixie_tpu_torch.ops``     — P2G / G2P transfers and the tile blend: CUDA
                                   kernels on CUDA tensors, plain PyTorch on
                                   CPU tensors
   * ``pixie_tpu_torch.models``  — the 3D U-Nets as ``nn.Module``s with the
                                   reference ``epoch_*.pth`` state-dict keys
   * ``pixie_tpu_torch.train``   — combined U-Net inference
-  * ``pixie_tpu_torch.voxel``   — prediction -> material PLY mapping
-  * ``pixie_tpu_torch.utils``   — PLY/npy I/O, normalization, artifact paths
-  * ``pixie_tpu_torch.pipeline``— the voxel grid -> U-Nets -> material PLY ->
+  * ``pixie_tpu_torch.voxel``   — the voxelizer, CLIP part segmentation,
+                                  prediction -> material PLY mapping
+  * ``pixie_tpu_torch.vlm_labeler`` — the VLM labeling chain
+  * ``pixie_tpu_torch.utils``   — PLY/npy I/O, normalization, artifact paths,
+                                  point-cloud images, mesh paint, commands
+  * ``pixie_tpu_torch.pipeline``— capture -> field / 3DGS -> voxel grid ->
+                                  U-Nets or the VLM chain -> material PLY ->
                                   MPM rollout (-> rendered frames) stages
+  * ``pixie_tpu_torch.render``  — the output renders (``python -m``)
 
 The package imports ``torch`` and never ``jax``.
 """

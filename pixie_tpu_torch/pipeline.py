@@ -16,12 +16,18 @@
       for a missing material_grid.npy) + mask + npz -> both U-Nets ->
       sample_{k}_pred.npy -> denormalization -> mapped_preds.ply
       (pipeline.py:187-317)
+  generate_vlm_segmentation    — the VLM labeling chain (material_mode=vlm):
+      parts, ranges and query sets from the VLM, the fine re-voxelization
+      and similarity heatmaps, the critic's pick, rejection-sampled draws,
+      CLIP part segmentation -> sample_{k}/segmented_semantics.ply +
+      material_grid.npy  (pipeline.py:320-325)
   run_physics_simulation       — mapped_preds.ply -> MPM rollout ->
       ply_files/frame_%04d.ply + sim_info.json  (pipeline.py:328-375)
 
-The stage functions take explicit arguments (no config tree needed);
-``main(argv)`` composes the same ``key=value`` overrides as ``pipeline.py``
-through ``pixie_tpu_torch.config`` (over the shared YAML tree) and runs the
+The stage functions take explicit arguments (no config tree needed), apart
+from the VLM chain's, which reads the tree as JAX's does; ``main(argv)``
+composes the same ``key=value`` overrides as ``pipeline.py`` through
+``pixie_tpu_torch.config`` (over the shared YAML tree) and runs the
 stages, joining the voxelizer's feature write before it returns
 (pipeline.py:175-185, 408-410).  The Blender render stage that writes the
 capture is not in this port.  The U-Nets the neural stage reads are
@@ -288,6 +294,18 @@ def _write_placeholder_material_grid(render_output: Path, mask_path, sample_id: 
                  "be meaningless)")
 
 
+def generate_vlm_segmentation(cfg, paths: dict, backend=None, vox: dict | None = None,
+                              device: str | torch.device = "cuda") -> Path:
+    """The VLM labeling chain over the object's capture and voxel artifacts
+    (``cfg.vlm_model``'s backend, or ``backend``); returns sample_0's
+    ``segmented_semantics.ply``.  ``vox``: ``generate_voxels``'s result,
+    whose feature npy the chain reads, joined first."""
+    from pixie_tpu_torch.vlm_labeler.chain import run_vlm_labeling_chain  # noqa: PLC0415
+
+    finish_voxel_fetch(vox)
+    return Path(run_vlm_labeling_chain(cfg, paths, backend=backend, device=device))
+
+
 def run_physics_simulation(
     material_ply: str | Path,
     sim_config: str | Path,
@@ -324,8 +342,9 @@ def run_physics_simulation(
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
-    """``pipeline.py``'s field and 3DGS training, voxelizer and neural slice
-    with its ``key=value`` overrides."""
+    """``pipeline.py``'s field and 3DGS training, voxelizer, material stage
+    (``material_mode``: neural or vlm) and rollout with its ``key=value``
+    overrides."""
     from pixie_tpu_torch.config import compose  # noqa: PLC0415
     from pixie_tpu_torch.utils.paths import (  # noqa: PLC0415
         create_directories, get_output_paths, resolve_paths,
@@ -335,8 +354,6 @@ def main(argv=None, device: str | torch.device = "cuda"):
     cfg = compose(overrides=list(sys.argv[1:] if argv is None else argv))
     if not cfg.obj_id:
         raise ValueError("obj_id is required: python -m pixie_tpu_torch.pipeline obj_id=...")
-    if cfg.material_mode != "neural":
-        raise NotImplementedError(f"material_mode={cfg.material_mode!r} is not ported")
     cfg = resolve_paths(cfg)
     paths = get_output_paths(cfg, cfg.obj_id)
     create_directories(paths)
@@ -356,21 +373,26 @@ def main(argv=None, device: str | torch.device = "cuda"):
         alpha_threshold_for_mask=vc.alpha_threshold_for_mask, gray_threshold=vc.gray_threshold,
         overwrite=bool(cfg.overwrite or cfg.overwrite_voxel), device=device)
     tr = cfg.training
-    # the U-Net width of the config tree (defaults: the shipped nets)
-    model_kwargs = dict(cond_dim=tr.cond_dim, model_channels=tr.training.unet_model_channels,
-                        num_res_blocks=tr.training.unet_num_res_blocks,
-                        channel_mult=tuple(tr.training.unet_channel_mult),
-                        attention_resolutions=tuple(tr.training.attention_resolutions))
-    material_ply = generate_neural_segmentation(
-        paths["render_output"], paths["neural_base_dir"], cfg.obj_id,
-        cfg.paths.discrete_checkpoint_dir, cfg.paths.continuous_checkpoint_dir,
-        ranges_path=Path(cfg.paths.normalization_stats_dir) / "normalization_ranges.yaml",
-        sample_id=cfg.physics.sample_id, grid_size=tr.default_grid_size,
-        feature_channels=tr.feature_channels, num_classes=tr.num_material_classes,
-        background_id=tr.background_id, model_kwargs=model_kwargs,
-        overwrite=bool(cfg.overwrite), device=device,
-        features_dev=(vox or {}).get("features_dev"), feature_type=tr.feature_type,
-        batch_size=tr.inference.batch_size)
+    if cfg.material_mode == "neural":
+        # the U-Net width of the config tree (defaults: the shipped nets)
+        model_kwargs = dict(cond_dim=tr.cond_dim, model_channels=tr.training.unet_model_channels,
+                            num_res_blocks=tr.training.unet_num_res_blocks,
+                            channel_mult=tuple(tr.training.unet_channel_mult),
+                            attention_resolutions=tuple(tr.training.attention_resolutions))
+        material_ply = generate_neural_segmentation(
+            paths["render_output"], paths["neural_base_dir"], cfg.obj_id,
+            cfg.paths.discrete_checkpoint_dir, cfg.paths.continuous_checkpoint_dir,
+            ranges_path=Path(cfg.paths.normalization_stats_dir) / "normalization_ranges.yaml",
+            sample_id=cfg.physics.sample_id, grid_size=tr.default_grid_size,
+            feature_channels=tr.feature_channels, num_classes=tr.num_material_classes,
+            background_id=tr.background_id, model_kwargs=model_kwargs,
+            overwrite=bool(cfg.overwrite), device=device,
+            features_dev=(vox or {}).get("features_dev"), feature_type=tr.feature_type,
+            batch_size=tr.inference.batch_size)
+    elif cfg.material_mode == "vlm":
+        material_ply = generate_vlm_segmentation(cfg, paths, vox=vox, device=device)
+    else:
+        raise ValueError(f"unknown material_mode {cfg.material_mode!r}")
     # config resolution of pipeline.py:338-348
     if cfg.get("is_objaverse_object", True):
         sim_cfg = (Path(cfg.paths.physgaussian_config_dir) / "objaverse"

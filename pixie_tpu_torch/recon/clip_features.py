@@ -16,10 +16,16 @@ Nothing is downloaded: without a snapshot, extraction raises
 ...")`` as the JAX package raises where it cannot load them.  The
 safetensors file is read with numpy (an 8-byte header length, a JSON
 header, raw little-endian bytes).  The tower is ``recon/clip_tower.py``.
+
+The part queries of the VLM labeling path are encoded by the same
+snapshot's text tower (``encode_text_queries``, ``CLIPTextEncoder``): a
+``CLIPModel`` snapshot, its ``vocab.json`` and ``merges.txt`` read by
+``recon/clip_tokenizer.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -28,8 +34,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pixie_tpu_torch.recon.clip_tokenizer import CLIPTokenizer
 from pixie_tpu_torch.recon.clip_tower import (
-    CLIPVisionConfig, convert_clip_vision_state_dict, extract_clip_features_torch,
+    CLIPTextConfig, CLIPTextTower, CLIPVisionConfig, convert_clip_text_state_dict,
+    convert_clip_vision_state_dict, extract_clip_features_torch,
 )
 
 
@@ -94,19 +102,34 @@ def find_snapshot(model_name: str) -> Path | None:
     return snaps[0] if len(snaps) == 1 else None
 
 
-def load_clip_vision(model_name: str = CLIPArgs.model_name):
-    """(CLIPVisionConfig, the tower's state dict) from the local snapshot of
-    ``model_name``; CLIPWeightsUnavailable where there is none."""
+def _snapshot_weights(model_name: str, also=()) -> tuple[Path, Path]:
+    """(snapshot directory, weights file) of ``model_name``, the snapshot
+    also holding the files ``also``; CLIPWeightsUnavailable where there is
+    none."""
     snap = find_snapshot(model_name)
     weights = None
-    if snap is not None:
+    if snap is not None and all((snap / n).is_file() for n in also):
         weights = next((snap / n for n in ("model.safetensors", "pytorch_model.bin")
                         if (snap / n).is_file()), None)
     if weights is None:
         raise CLIPWeightsUnavailable(
-            f"CLIP weights unavailable (no local snapshot of {model_name!r} with config.json and "
-            f"model.safetensors or pytorch_model.bin, as a directory or under {_hub_cache()}); "
-            f"provide precomputed features")
+            f"CLIP weights unavailable (no local snapshot of {model_name!r} with config.json, "
+            f"model.safetensors or pytorch_model.bin{''.join(', ' + n for n in also)}, as a "
+            f"directory or under {_hub_cache()}); provide precomputed features")
+    return snap, weights
+
+
+def _read_weights(weights: Path, keep) -> dict:
+    if weights.suffix == ".safetensors":
+        return read_safetensors(weights, keep=keep)
+    return {k: v for k, v in torch.load(weights, map_location="cpu", weights_only=True).items()
+            if keep(k)}
+
+
+def load_clip_vision(model_name: str = CLIPArgs.model_name):
+    """(CLIPVisionConfig, the tower's state dict) from the local snapshot of
+    ``model_name``; CLIPWeightsUnavailable where there is none."""
+    snap, weights = _snapshot_weights(model_name)
     hf = json.loads((snap / "config.json").read_text())
     hf = hf.get("vision_config", hf)          # a CLIPModel's config nests the tower's
     cfg = CLIPVisionConfig(
@@ -115,15 +138,58 @@ def load_clip_vision(model_name: str = CLIPArgs.model_name):
         num_attention_heads=hf["num_attention_heads"], patch_size=hf["patch_size"],
         image_size=hf["image_size"], layer_norm_eps=hf.get("layer_norm_eps", 1e-5))
 
-    def vision(name):
-        return name.startswith("vision_model.")
-
-    if weights.suffix == ".safetensors":
-        state = read_safetensors(weights, keep=vision)
-    else:
-        state = {k: v for k, v in torch.load(weights, map_location="cpu",
-                                             weights_only=True).items() if vision(k)}
+    state = _read_weights(weights, lambda name: name.startswith("vision_model."))
     return cfg, convert_clip_vision_state_dict(state, cfg)
+
+
+def load_clip_text(model_name: str = CLIPArgs.model_name):
+    """(CLIPTextConfig, the text tower's state dict, CLIPTokenizer) from the
+    local ``CLIPModel`` snapshot of ``model_name`` (config.json with its
+    ``text_config``, the weights, vocab.json and merges.txt);
+    CLIPWeightsUnavailable where there is none."""
+    snap, weights = _snapshot_weights(model_name, also=("vocab.json", "merges.txt"))
+    hf = json.loads((snap / "config.json").read_text())
+    act = hf.get("text_config", {}).get("hidden_act", "quick_gelu")
+    if act != "quick_gelu":
+        raise ValueError(f"{snap}: the text tower runs quick_gelu, not {act!r}")
+    fields = {f.name for f in dataclasses.fields(CLIPTextConfig)} - {"projection_dim"}
+    cfg = CLIPTextConfig(**{k: v for k, v in hf.get("text_config", {}).items() if k in fields},
+                         projection_dim=hf.get("projection_dim", CLIPTextConfig.projection_dim))
+    state = _read_weights(weights, lambda name: name.startswith("text_model.")
+                          or name == "text_projection.weight")
+    return cfg, convert_clip_text_state_dict(state, cfg), CLIPTokenizer.from_snapshot(snap)
+
+
+class CLIPTextEncoder:
+    """Text queries -> (Q, projection_dim) float32 CLIP embeddings of norm 1,
+    the text tower loaded once onto ``device`` and run in float32 (TF32
+    off, so that the card's similarities and labels match the CPU's)."""
+
+    def __init__(self, model_name: str = CLIPArgs.model_name,
+                 device: str | torch.device = "cuda"):
+        from pixie_tpu_torch.recon.field_adapter import use_fp32_matmuls  # noqa: PLC0415
+
+        cfg, params, self.tokenizer = load_clip_text(model_name)
+        self.device = torch.device(device)
+        use_fp32_matmuls(self.device)
+        self.tower = CLIPTextTower(cfg)
+        self.tower.load_state_dict(params)
+        self.tower.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, queries) -> np.ndarray:
+        ids = torch.as_tensor(self.tokenizer(list(queries)), device=self.device)
+        emb = self.tower(ids)
+        emb = emb / emb.norm(dim=-1, keepdim=True)
+        return emb.cpu().numpy().astype(np.float32)
+
+
+def encode_text_queries(queries: list[str], model_name: str = CLIPArgs.model_name,
+                        device: str | torch.device = "cuda") -> np.ndarray:
+    """Text queries -> (Q, projection_dim) normalized CLIP embeddings (the
+    encoder the VLM path's segmentation consumes, segmentation.py
+    run_clip:98-122); the snapshot is read on each call."""
+    return CLIPTextEncoder(model_name, device)(queries)
 
 
 def load_views(image_paths, image_size: int, patch_size: int) -> np.ndarray:

@@ -1,5 +1,6 @@
 """CLIP vision tower for dense patch-feature extraction (port of
-pixie_tpu/recon/clip_jax.py).
+pixie_tpu/recon/clip_jax.py), and CLIP's text tower for the part queries of
+the VLM labeling path.
 
 Channel-last patchify as one product, pre-LN transformer blocks, the class
 token first, as HF's ``CLIPVisionModel`` computes ``last_hidden_state``.
@@ -17,6 +18,13 @@ softmax in float32.
 
 ``convert_clip_vision_state_dict`` maps an HF ``CLIPVisionModel`` (or
 ``CLIPModel``) state dict onto the tower's.
+
+``CLIPTextTower`` is HF's ``CLIPModel.get_text_features`` (the JAX package
+calls HF there, pixie_tpu/recon/clip_features.py ``encode_text_queries``):
+token and position embeddings, the same pre-LN layers under a causal mask,
+the final LayerNorm, the hidden state at the end-of-text position, and the
+bias-free ``text_projection``.  It runs in float32.
+``convert_clip_text_state_dict`` maps a ``CLIPModel`` state dict onto it.
 """
 
 from __future__ import annotations
@@ -83,7 +91,8 @@ class CLIPEncoderLayer(nn.Module):
         self.fc1 = nn.Linear(c.hidden_size, c.intermediate_size)
         self.fc2 = nn.Linear(c.intermediate_size, c.hidden_size)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``mask``: (t, t) bool, True where a query may not see a key."""
         c = self.cfg
         b, t, _ = h.shape
         heads, hd = c.num_attention_heads, c.hidden_size // c.num_attention_heads
@@ -91,7 +100,10 @@ class CLIPEncoderLayer(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))      # (b, heads, t, hd)
         # float32 logits and softmax (bfloat16 products are exact in float32)
         logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
-        attn = torch.softmax(logits * (1.0 / math.sqrt(hd)), dim=-1)
+        logits = logits * (1.0 / math.sqrt(hd))
+        if mask is not None:
+            logits = logits.masked_fill(mask, float("-inf"))
+        attn = torch.softmax(logits, dim=-1)
         out = torch.matmul(attn.to(v.dtype), v).transpose(1, 2).reshape(b, t, c.hidden_size)
         h = h + _dense(out, self.proj)
         return h + _dense(quick_gelu(_dense(self.ln2(h), self.fc1)), self.fc2)
@@ -152,12 +164,7 @@ def convert_clip_vision_state_dict(state_dict, cfg: CLIPVisionConfig) -> dict:
     ``vision_model.embeddings.*``, ``vision_model.encoder.layers.{i}.*``,
     ``vision_model.pre_layrnorm.*``, the prefix optional) -> the state dict
     of ``CLIPVisionTower``."""
-
-    def get(k):
-        return torch.as_tensor(np.asarray(state_dict[k], np.float32)
-                               if not isinstance(state_dict[k], torch.Tensor)
-                               else state_dict[k].detach().to(torch.float32).cpu())
-
+    get = _getter(state_dict)
     pref = "vision_model." if any(k.startswith("vision_model.") for k in state_dict) else ""
     conv = get(pref + "embeddings.patch_embedding.weight")     # (hidden, 3, p, p)
     out = {
@@ -168,7 +175,27 @@ def convert_clip_vision_state_dict(state_dict, cfg: CLIPVisionConfig) -> dict:
         "pre_ln.weight": get(pref + "pre_layrnorm.weight"),
         "pre_ln.bias": get(pref + "pre_layrnorm.bias"),
     }
-    for i in range(cfg.num_hidden_layers):
+    out.update(_convert_layers(get, pref, cfg.num_hidden_layers))
+    return out
+
+
+def _getter(state_dict):
+    """name -> a float32 CPU tensor of ``state_dict`` (torch or numpy)."""
+
+    def get(k):
+        v = state_dict[k]
+        if isinstance(v, torch.Tensor):
+            return v.detach().to(torch.float32).cpu()
+        return torch.as_tensor(np.asarray(v, np.float32))
+
+    return get
+
+
+def _convert_layers(get, pref: str, n_layers: int) -> dict:
+    """HF's ``{pref}encoder.layers.{i}.*`` -> ``CLIPEncoderLayer``'s keys
+    under ``layers.{i}.`` (q, k, v stacked as the rows of ``qkv``)."""
+    out = {}
+    for i in range(n_layers):
         hf, mine = f"{pref}encoder.layers.{i}.", f"layers.{i}."
         out[mine + "qkv.weight"] = torch.cat(
             [get(f"{hf}self_attn.{n}_proj.weight") for n in "qkv"], dim=0)
@@ -177,6 +204,90 @@ def convert_clip_vision_state_dict(state_dict, cfg: CLIPVisionConfig) -> dict:
                          ("layer_norm2", "ln2"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
             for leaf in ("weight", "bias"):
                 out[f"{mine}{dst}.{leaf}"] = get(f"{hf}{src}.{leaf}")
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """The text tower's widths; the defaults are HF ``CLIPTextConfig``'s
+    (and ``CLIPConfig``'s ``projection_dim``), which a snapshot's
+    config.json leaves out where it keeps them."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 512
+    intermediate_size: int = 2048
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 8
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    projection_dim: int = 512
+    eos_token_id: int = 49407
+
+    @classmethod
+    def vit_l_14_336(cls):
+        """openai/clip-vit-large-patch14-336's text config (its legacy
+        ``eos_token_id`` of 2 selects argmax pooling)."""
+        return cls(hidden_size=768, intermediate_size=3072, num_attention_heads=12,
+                   projection_dim=768, eos_token_id=2)
+
+
+def eos_positions(input_ids: torch.Tensor, eos_token_id: int) -> torch.Tensor:
+    """The position HF's ``CLIPTextTransformer`` pools in each row: with the
+    legacy ``eos_token_id == 2`` the argmax of the ids (end-of-text has the
+    largest id of the vocab, and padding repeats it, so this is the first
+    maximum, which ``torch.argmax`` returns); otherwise the first position
+    holding ``eos_token_id``."""
+    if eos_token_id == 2:
+        return input_ids.argmax(dim=-1)
+    return (input_ids == eos_token_id).to(torch.int32).argmax(dim=-1)
+
+
+class CLIPTextTower(nn.Module):
+    """input_ids (B, T) -> text features (B, projection_dim), not
+    normalized: HF's ``CLIPModel.get_text_features``.
+
+    Only the causal mask is applied.  HF also masks the padding keys, but
+    the pooled position is the first end-of-text token and every pad token
+    comes after it, where the causal mask already hides it; the padded
+    positions' own outputs differ from HF's and are never read."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.hidden_size))
+        self.position_embedding = nn.Parameter(
+            torch.zeros(cfg.max_position_embeddings, cfg.hidden_size))
+        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        b, t = input_ids.shape
+        if t > self.cfg.max_position_embeddings:
+            raise ValueError(f"{t} tokens exceed the {self.cfg.max_position_embeddings} "
+                             f"positions of the text tower")
+        x = self.token_embedding[input_ids] + self.position_embedding[:t]
+        causal = torch.ones((t, t), dtype=torch.bool, device=x.device).triu(1)
+        for layer in self.layers:
+            x = layer(x, causal)
+        x = self.final_ln(x)
+        pooled = x[torch.arange(b, device=x.device), eos_positions(input_ids, self.cfg.eos_token_id)]
+        return self.text_projection(pooled)
+
+
+def convert_clip_text_state_dict(state_dict, cfg: CLIPTextConfig) -> dict:
+    """HF CLIPModel state dict (torch tensors or numpy; keys
+    ``text_model.embeddings.*``, ``text_model.encoder.layers.{i}.*``,
+    ``text_model.final_layer_norm.*``, ``text_projection.weight``) -> the
+    state dict of ``CLIPTextTower``."""
+    get = _getter(state_dict)
+    pref = "text_model."
+    out = {"token_embedding": get(pref + "embeddings.token_embedding.weight"),
+           "position_embedding": get(pref + "embeddings.position_embedding.weight"),
+           "final_ln.weight": get(pref + "final_layer_norm.weight"),
+           "final_ln.bias": get(pref + "final_layer_norm.bias"),
+           "text_projection.weight": get("text_projection.weight")}
+    out.update(_convert_layers(get, pref, cfg.num_hidden_layers))
     return out
 
 

@@ -1,2 +1,3 @@
 """Host utilities carried over from pixie_tpu.utils: PLY/npy I/O,
-material normalization and artifact paths (numpy only)."""
+material normalization, artifact paths, point-cloud images, mesh paint,
+commands and observability."""

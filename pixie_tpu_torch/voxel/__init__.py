@@ -1,1 +1,2 @@
-"""Prediction -> material point cloud mapping (host, numpy)."""
+"""The voxelizer, CLIP part segmentation and its heatmaps, and the
+prediction -> material point cloud mapping."""

@@ -1,5 +1,7 @@
 """Importing any pixie_tpu_torch module must not import JAX or flax, nor
-the JAX package itself (``chip_smoke.py`` runs on a machine without JAX)."""
+the JAX package itself (``chip_smoke.py`` runs on a machine without JAX),
+nor Hugging Face ``transformers`` or ``regex`` (the CLIP text path reads its
+snapshot and tokenizes on its own)."""
 
 import json
 import subprocess
@@ -21,7 +23,8 @@ def _import_in_fresh_interpreter(modules):
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
-        "                        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pixie_tpu'))))\n"
+        "                        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pixie_tpu',\n"
+        "                                               'transformers', 'regex'))))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -47,7 +50,13 @@ def test_module_list_covers_the_slice():
               "pixie_tpu_torch.recon.clip_tower", "pixie_tpu_torch.recon.clip_features",
               "pixie_tpu_torch.train.trainer", "pixie_tpu_torch.train.data",
               "pixie_tpu_torch.train.inspect_ranges", "pixie_tpu_torch.train.inference",
-              "pixie_tpu_torch.parallel", "pixie_tpu_torch.parallel.mesh"):
+              "pixie_tpu_torch.parallel", "pixie_tpu_torch.parallel.mesh",
+              "pixie_tpu_torch.recon.clip_tokenizer", "pixie_tpu_torch.voxel.segmentation",
+              "pixie_tpu_torch.voxel.viz_segmentation", "pixie_tpu_torch.vlm_labeler",
+              "pixie_tpu_torch.vlm_labeler.agent", "pixie_tpu_torch.vlm_labeler.class_instructions",
+              "pixie_tpu_torch.vlm_labeler.stages", "pixie_tpu_torch.vlm_labeler.chain",
+              "pixie_tpu_torch.utils.proc", "pixie_tpu_torch.utils.observability",
+              "pixie_tpu_torch.utils.mesh_paint", "pixie_tpu_torch.render"):
         assert m in MODULES
 
 
@@ -60,7 +69,9 @@ def test_no_jax_after_importing_every_module():
                                    "pixie_tpu_torch.scripts.probe_kernel_ablation",
                                    "pixie_tpu_torch.scripts.probe_vmem_gather",
                                    "pixie_tpu_torch.train.trainer",
-                                   "pixie_tpu_torch.train.inspect_ranges"])
+                                   "pixie_tpu_torch.train.inspect_ranges",
+                                   "pixie_tpu_torch.render",
+                                   "pixie_tpu_torch.vlm_labeler.chain"])
 def test_no_jax_from_entry_point(entry):
     assert _import_in_fresh_interpreter([entry]) == []
 

@@ -185,3 +185,81 @@ def write_clip_snapshot(path, cfg: dict, seed: int = 0):
                                                       architectures=["CLIPVisionModel"])))
     write_safetensors(path / "model.safetensors", hf_clip_state_dict(cfg, seed))
     return path
+
+
+# a CLIP text tower small enough for the CPU, as HF text_config keys
+TINY_TEXT = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                 num_attention_heads=4, max_position_embeddings=77, layer_norm_eps=1e-5,
+                 hidden_act="quick_gelu")
+
+
+def hf_clip_text_state_dict(cfg: dict, vocab_size: int, projection_dim: int,
+                            seed: int = 0) -> dict:
+    """Seeded HF ``CLIPModel`` text weights (numpy, ``text_model.*`` and
+    ``text_projection.weight``), at the scales of ``hf_clip_state_dict``."""
+    rng = np.random.default_rng(seed)
+    hid, inter = cfg["hidden_size"], cfg["intermediate_size"]
+
+    def normal(shape, std):
+        return (rng.normal(size=shape) * std).astype(np.float32)
+
+    sd = {"text_model.embeddings.token_embedding.weight": normal((vocab_size, hid), 0.5),
+          "text_model.embeddings.position_embedding.weight":
+              normal((cfg["max_position_embeddings"], hid), 0.5)}
+
+    def norm(name):
+        sd[f"{name}.weight"] = 1.0 + normal((hid,), 0.1)
+        sd[f"{name}.bias"] = normal((hid,), 0.1)
+
+    def linear(name, n_out, n_in):
+        sd[f"{name}.weight"] = normal((n_out, n_in), n_in ** -0.5)
+        sd[f"{name}.bias"] = normal((n_out,), 0.02)
+
+    for i in range(cfg["num_hidden_layers"]):
+        lp = f"text_model.encoder.layers.{i}."
+        for n in ("q", "k", "v", "out"):
+            linear(f"{lp}self_attn.{n}_proj", hid, hid)
+        norm(lp + "layer_norm1")
+        norm(lp + "layer_norm2")
+        linear(lp + "mlp.fc1", inter, hid)
+        linear(lp + "mlp.fc2", hid, inter)
+    norm("text_model.final_layer_norm")
+    sd["text_projection.weight"] = normal((projection_dim, hid), hid ** -0.5)
+    return sd
+
+
+def write_clip_model_snapshot(path, corpus, text_cfg: dict = TINY_TEXT, vision_cfg: dict = TINY_CLIP,
+                              projection_dim: int = 16, n_merges: int = 200,
+                              legacy_eos: bool = True, seed: int = 0):
+    """A local HF snapshot directory of a seeded ``CLIPModel``: config.json
+    (``text_config``, ``vision_config``, ``projection_dim``),
+    model.safetensors with the text and vision keys, and a seeded
+    vocab.json / merges.txt of the real layout (``chip_smoke._bpe_vocab``:
+    merges learned on ``corpus`` first, then seeded ones at seeded ranks).
+    ``legacy_eos``: the text config's ``eos_token_id`` is 2, as OpenAI's
+    checkpoints carry it (argmax pooling); else ``<|endoftext|>``'s id."""
+    import json
+    from pathlib import Path
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    from chip_smoke import _bpe_vocab
+
+    vocab, merges, _ = _bpe_vocab(corpus, n_merges, seed)
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    eos = vocab["<|endoftext|>"]
+    text = dict(text_cfg, vocab_size=len(vocab), model_type="clip_text_model",
+                bos_token_id=vocab["<|startoftext|>"], pad_token_id=1,
+                eos_token_id=2 if legacy_eos else eos)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": projection_dim,
+        "text_config": text,
+        "vision_config": dict(vision_cfg, model_type="clip_vision_model")}))
+    sd = hf_clip_state_dict(vision_cfg, seed)
+    sd.update(hf_clip_text_state_dict(text, len(vocab), projection_dim, seed + 1))
+    sd["visual_projection.weight"] = np.zeros((projection_dim, vision_cfg["hidden_size"]),
+                                              np.float32)
+    sd["logit_scale"] = np.asarray(2.6592, np.float32)
+    write_safetensors(path / "model.safetensors", sd)
+    return path
