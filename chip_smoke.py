@@ -149,6 +149,24 @@ Phases (any failure exits non-zero):
                 (d) python -m pixie_tpu_torch.render with modes nerf, gs and
                 sim in a subprocess on phase 5's checkpoint, phase 7's field
                 and (c)'s frame: every PNG written and not blank, s a view
+ 11. multi    — the multi-device paths (after phase 9): (a) config 5 (500k
+                particles of sand, snow and plasticine, n_grid 120, grid_lim
+                3, damping 0.9999, a ground collider and an impulse) for one
+                frame cut to 100 of its 400 substeps in one process; (b) the
+                all-reduce path (sim/solver_dist.rollout_fast_sharded) and
+                (c) the x-slab halo path (rollout_halo_sharded, 2 slabs of 5
+                x-tiles) on spawned ranks: NCCL, one a card, and 2 gloo ranks
+                sharing cuda:0 (gloo stages its sends through host memory);
+                x against (a) (mean 1e-4, max 1e-2 cell), each rank's B1 and
+                B2 launches equal to its substeps, ms a substep, bytes
+                exchanged a substep; (d) the shipped U-Nets at 64^3 x 768,
+                batch 4, on a dp 1 x sp 2 mesh (gloo on one card; NCCL with
+                two cards) for 3 steps against one process: the loss within
+                1e-4, every gradient within 1e-3 of its scale, ms a step,
+                peak memory a rank; (e) python -m pixie_tpu_torch.examples.
+                jelly_drop's main at 10k particles for 2 frames (800 B1 and
+                B2 launches) and pipeline_cli_e2e in a subprocess, every
+                artifact present
 The line before the last is the kernel JSON (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs,
@@ -2761,6 +2779,469 @@ def phase_vlm(dev, capture: Path, gs_dir: Path, field_dir: Path, d: int = 64,
     return launches
 
 
+# -- phase 11: the multi-device paths -------------------------------------------------
+# config 5 (BASELINE): a real scene of 500k particles (sand, snow, plasticine) at
+# n_grid 120, grid_lim 3.0 (config/real_scene/custom_bonsai_config.json), damping
+# 0.9999, rpic 0; one frame cut to MULTI_SUBSTEPS of its 400 substeps, unfused,
+# after a warm-up frame of MULTI_WARMUP
+MULTI_N, MULTI_SUBSTEPS, MULTI_WARMUP = 500_000, 100, 5
+MULTI_CFG = dict(n_grid=120, grid_lim=3.0, gravity=(0.0, 0.0, -9.8), grid_v_damping_scale=0.9999,
+                 rpic_damping=0.0, active_materials=(2, 3, 5))
+MULTI_HALO_RANKS = 2       # n_tiles(120) = 10 x-tiles, 5 a slab
+# the U-Net over an sp group: the shipped nets at 64^3 x 768, batch 4, dp 1 x sp 2
+UNET_SP_STEPS, UNET_SP_BATCH, UNET_SP_LOSS_RTOL = 3, 4, 1e-4
+# The sp ranks round otherwise than one process (cuDNN's algorithms for a
+# slab, the norms' sums), and a LeakyReLU input within rounding of 0 then
+# takes the other slope in one run.  Such a flip is diluted over every voxel
+# in a convolution's gradient, but a per-voxel norm affine ((D, H, W): the
+# SpatialLayerNorms') sums only a voxel's batch x channels: there it moves
+# one element by up to ~1 %.  Those tensors are held elementwise: this share
+# within UNET_GRAD_RTOL of the scale, none beyond UNET_VOXEL_MAX.  (Adam
+# then moves a parameter whose gradient is rounding noise by ~lr whatever
+# its sign, so later steps compare further-apart weights.)
+UNET_VOXEL_SHARE, UNET_VOXEL_MAX = 0.999, 5e-2
+
+
+def _config5_scene(n: int, seed: int = 0):
+    """Three material blobs resting above the ground plane of a grid_lim 3
+    domain: a sand mound, a snow ball and a plasticine slab (copied from
+    scripts/bench_realscene.py:31-69, which imports JAX)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_sand = n // 2
+    n_snow = n // 4
+    n_plas = n - n_sand - n_snow
+    sand = rng.uniform([0.8, 0.8, 0.25], [1.6, 1.6, 0.75], (n_sand, 3))
+    theta = rng.normal(size=(n_snow, 3))
+    theta /= np.linalg.norm(theta, axis=1, keepdims=True)
+    r = 0.35 * rng.uniform(0, 1, (n_snow, 1)) ** (1 / 3)
+    snow = np.array([1.9, 1.2, 1.1]) + theta * r
+    plas = rng.uniform([0.7, 1.8, 0.25], [2.1, 2.4, 0.55], (n_plas, 3))
+    x = np.concatenate([sand, snow, plas]).astype(np.float32)
+
+    def per(a, b, c, dtype=np.float32):
+        return np.concatenate([np.full(n_sand, a, dtype), np.full(n_snow, b, dtype),
+                               np.full(n_plas, c, dtype)])
+
+    return dict(x=x, vol=np.full(n, (3.0 ** 3) * 0.15 / n, np.float32),
+                density=per(2000.0, 400.0, 1500.0), E=per(5e7, 1e5, 2e6), nu=per(0.3, 0.2, 0.35),
+                material=per(2, 5, 3, np.int32), yield_stress=per(0.0, 0.0, 3e4))
+
+
+def _config5_state(dev, n: int):
+    """Config 5's state at ``n`` particles and its BCs on ``dev``: a sticky
+    ground collider at z 0.2 and an impulse on the particles in a box
+    around the snow ball (20 substeps)."""
+    from pixie_tpu_torch.sim import bc
+    from pixie_tpu_torch.sim.types import finalize_mu_lam, make_state
+
+    d = _config5_scene(n)
+    st = finalize_mu_lam(make_state(d.pop("x"), d.pop("vol"), device=dev, **d))
+    x = st.x.cpu().numpy()
+    bcs = (bc.make_surface_collider((1.5, 1.5, 0.2), (0.0, 0.0, 1.0), "sticky", device=dev),
+           bc.make_particle_impulse(x, (1.0, 0.0, 2.0), DT, point=(1.9, 1.2, 1.1),
+                                    size=(0.4, 0.4, 0.4), num_dt=20, device=dev))
+    return st, bcs
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+
+
+def _reset_peak(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _timed_frame(dev, fn) -> tuple:
+    """``fn()`` between two synchronizes: its result, seconds, and the P2G
+    and G2P launches it made."""
+    from pixie_tpu_torch.ops import transfer
+
+    _sync(dev)
+    before = transfer.P2G_LAUNCHES, transfer.G2P_LAUNCHES
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0, (transfer.P2G_LAUNCHES - before[0],
+                                           transfer.G2P_LAUNCHES - before[1])
+
+
+def _multi_mpm(rank: int, world: int, dev, args: dict) -> dict:
+    """One rank's frames of config 5: the all-reduce path on the whole
+    world, then the halo path on its first ``halo`` ranks (a group of its
+    own); each after a warm-up frame."""
+    import torch.distributed as dist
+
+    from pixie_tpu_torch.sim import solver_dist as sd
+    from pixie_tpu_torch.sim.types import MPMConfig
+
+    cfg = MPMConfig(**MULTI_CFG)
+    st, bcs = _config5_state(dev, args["n"])
+    n_sub, warm = args["substeps"], args["warmup"]
+    out = {}
+    sd.rollout_fast_sharded(st, cfg, bcs, warm, DT)
+    res, sec, launches = _timed_frame(dev, lambda: sd.rollout_fast_sharded(
+        st, cfg, bcs, n_sub, DT))
+    out["allreduce"] = dict(x=res.x.cpu().numpy() if rank == 0 else None, s=sec,
+                            launches=launches, bytes=cfg.n_grid ** 3 * 4 * 4)
+    group = dist.new_group(list(range(args["halo"])))
+    if rank < args["halo"]:
+        nx = sd.n_tiles(cfg.n_grid) // args["halo"]
+        sd.rollout_halo_sharded(st, cfg, bcs, warm, DT, group=group)
+        res, sec, launches = _timed_frame(dev, lambda: sd.rollout_halo_sharded(
+            st, cfg, bcs, n_sub, DT, group=group))
+        out["halo"] = dict(x=res.x.cpu().numpy() if rank == 0 else None, s=sec,
+                           launches=launches,
+                           bytes=sd.halo_bytes_a_substep(cfg.n_grid, nx, group))
+    return out
+
+
+def _unet_sp_batches(dev, cfg: dict, steps: int, seed: int = 5) -> list:
+    """``steps`` seeded global batches of ``cfg``'s size on ``dev`` (the same
+    on every rank of one device type): float16 features, labels with
+    foreground shares."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, d, fc = cfg["batch_size"], cfg["grid_size"], cfg["feature_channels"]
+    out = []
+    for _ in range(steps):
+        feat = torch.randn((b, d, d, d, fc), generator=gen, device=dev, dtype=torch.float16)
+        share = torch.rand((b, 1, 1, 1), generator=gen, device=dev) * 0.6 + 0.1
+        mask = (torch.rand((b, d, d, d), generator=gen, device=dev) < share).float()
+        ids = torch.randint(0, 7, (b, d, d, d), generator=gen, device=dev)
+        out.append((feat, torch.where(mask > 0, ids, 7), mask))
+    return out
+
+
+def _unet_sp_steps(trainer, batches, dev) -> list:
+    """train_step on each batch in turn (Adam's updates in between): loss,
+    gradients, seconds."""
+    out = []
+    for batch in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        out.append(dict(loss=loss, s=time.perf_counter() - t0,
+                        grads={n: p.grad.detach().cpu() for n, p in
+                               trainer.model.named_parameters()}))
+    return out
+
+
+def _multi_unet(rank: int, world: int, dev, args: dict) -> dict:
+    """One rank of the (1, 2) U-Net trainer from the saved weights."""
+    import torch
+
+    from pixie_tpu_torch.parallel.mesh import get_mesh
+    from pixie_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(**args["cfg"]), device=dev, mesh=get_mesh(1, 2))
+    trainer.setup(1, params=torch.load(args["params"]))
+    batches = _unet_sp_batches(dev, args["cfg"], args["steps"])
+    _reset_peak(dev)
+    steps = _unet_sp_steps(trainer, batches, dev)
+    return dict(steps=steps, peak_gib=_peak_gib(dev))
+
+
+def _count_plain_transfers() -> None:
+    """A rehearsal on the CPU: each call of P2G's and G2P's plain versions
+    counts as a launch, as the card's wrappers count theirs."""
+    from pixie_tpu_torch.ops import transfer
+
+    p2g, g2p = transfer.p2g, transfer.g2p
+
+    def p2g_counted(*a, **k):
+        transfer.P2G_LAUNCHES += 1
+        return p2g(*a, **k)
+
+    def g2p_counted(*a, **k):
+        transfer.G2P_LAUNCHES += 1
+        return g2p(*a, **k)
+
+    transfer.p2g, transfer.g2p = p2g_counted, g2p_counted
+
+
+def _multi_worker(rank: int, world: int, init: str, backend: str, task: str, args: dict,
+                  out: str) -> None:
+    """A spawned rank: NCCL one card a rank, or gloo with every rank on
+    cuda:0; runs ``task`` and saves its result and its launch counts."""
+    import os
+
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    os.environ["LOCAL_RANK"] = str(rank)
+    if args.get("device", "cuda") == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    else:                     # a rehearsal on the CPU
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+        _count_plain_transfers()
+    # a group even of one rank (initialize_distributed starts none for one)
+    dist.init_process_group(backend, init_method=f"file://{init}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    _reset_counts()
+    res = {"mpm": _multi_mpm, "unet": _multi_unet}[task](rank, world, dev, args)
+    res["counts"] = _read_counts()
+    torch.save(res, f"{out}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(tmp: Path, world: int, backend: str, task: str, args: dict,
+                 timeout_s: int = 600) -> list:
+    """``world`` spawned ranks of ``_multi_worker``, stopped at the deadline."""
+    import torch
+    import torch.multiprocessing as mp
+
+    tag = f"{task}_{backend}_{world}"
+    ctx = mp.start_processes(_multi_worker, nprocs=world, join=False, start_method="spawn",
+                             args=(world, str(tmp / f"rdv_{tag}"), backend, task, args,
+                                   str(tmp / f"out_{tag}")))
+    try:
+        t0 = time.time()
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > timeout_s:
+                fail(f"phase 11: {tag} did not finish in {timeout_s} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        fail(f"phase 11: {tag} failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    return [torch.load(tmp / f"out_{tag}.{r}", weights_only=False) for r in range(world)]
+
+
+def _check_x(label: str, x, ref, inv_dx: float) -> None:
+    import numpy as np
+
+    d = np.abs(x - ref) * inv_dx
+    print(f"multi: {label}: x against the one-process frame: mean {d.mean():.3e} cell, max "
+          f"{d.max():.3e} cell (tol {ORDER_DX_MEAN}, {ORDER_DX_MAX})", flush=True)
+    if not (np.isfinite(x).all() and d.mean() <= ORDER_DX_MEAN and d.max() <= ORDER_DX_MAX):
+        fail(f"phase 11: {label} disagrees with the one-process frame")
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _multi_reference(dev, cfg, totals: dict):
+    """(a) config 5 in one process: x after the frame, ms a substep."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch.sim.solver import simulate_substeps
+
+    if dev.type != "cuda":
+        _count_plain_transfers()
+    _reset_counts()
+    st, bcs = _config5_state(dev, MULTI_N)
+    simulate_substeps(st.replace(**{k: getattr(st, k).clone() for k in ("x", "v", "C", "F",
+                                                                        "F_trial", "cov")}),
+                      cfg, bcs, 0.0, DT, MULTI_WARMUP)
+    ref, sec, launches = _timed_frame(dev, lambda: simulate_substeps(st, cfg, bcs, 0.0, DT,
+                                                                     MULTI_SUBSTEPS))
+    ref_x = ref.x.cpu().numpy()
+    one_ms = 1e3 * sec / MULTI_SUBSTEPS
+    print(f"multi: (a) config 5 in one process: {MULTI_N} particles (sand, snow, plasticine), "
+          f"n_grid {cfg.n_grid}, {MULTI_SUBSTEPS} substeps: {one_ms:.3f} ms a substep "
+          f"({1e3 / one_ms:.1f} substeps/s); B1/B2 launches {launches}", flush=True)
+    if launches != (MULTI_SUBSTEPS, MULTI_SUBSTEPS) or not np.isfinite(ref_x).all():
+        fail(f"phase 11 (a): launches {launches} or a non-finite state")
+    _add_counts(totals, _read_counts())
+    del st, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref_x, one_ms
+
+
+def _multi_sharded(dev, cfg, tmp: Path, ref_x, totals: dict, rows: dict) -> None:
+    """(b) the all-reduce path and (c) the halo path, both in one start of
+    the ranks of each kind: NCCL one a card (on a card), 2 gloo ranks."""
+    import torch
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    modes = [("gloo", 2, MULTI_HALO_RANKS)]
+    if cards:
+        modes.insert(0, ("nccl", cards, 2 if cards >= 2 else 1))
+    for backend, world, halo in modes:
+        t0 = time.time()
+        res = _spawn_ranks(tmp, world, backend, "mpm", {
+            "halo": halo, "device": dev.type, "n": MULTI_N, "substeps": MULTI_SUBSTEPS,
+            "warmup": MULTI_WARMUP})
+        for r in res:
+            _add_counts(totals, r["counts"])
+        for path, n in (("allreduce", world), ("halo", halo)):
+            per = [r[path] for r in res[:n]]
+            label = f"({'b' if path == 'allreduce' else 'c'}) {path} on {n} {backend} rank(s)"
+            for i, r in enumerate(per):
+                print(f"multi: {label}, rank {i}: {1e3 * r['s'] / MULTI_SUBSTEPS:.3f} ms a "
+                      f"substep (frame with its sharding and the final gather), B1/B2 "
+                      f"launches {r['launches']}, {r['bytes']} bytes exchanged a substep "
+                      f"({'the full grid all-reduced' if path == 'allreduce' else 'bands'})",
+                      flush=True)
+                if r["launches"] != (MULTI_SUBSTEPS, MULTI_SUBSTEPS):
+                    fail(f"phase 11 {label}: rank {i} launched {r['launches']}")
+            _check_x(label, per[0]["x"], ref_x, cfg.inv_dx)
+            rows[f"{path}_{backend}_{n}"] = 1e3 * max(r["s"] for r in per) / MULTI_SUBSTEPS
+        print(f"multi: {backend} ranks started and ran in {time.time() - t0:.1f} s", flush=True)
+
+
+def _grad_report(got: dict, want: dict) -> tuple[float, float, float, list]:
+    """Each gradient's error over its scale (the largest |value| of the
+    tensor, at least UNET_GRAD_FLOOR of the net's largest).  Returns the
+    worst over the tensors that sum over voxels; over the per-voxel norm
+    affines ((D, H, W) tensors) the share of elements within UNET_GRAD_RTOL
+    and the worst element; and the three worst tensors."""
+    import torch
+
+    top = max(float(g.abs().max()) for g in want.values())
+    errs, worst, voxel_err, within, n_voxel = [], 0.0, 0.0, 0, 0
+    for k, g in want.items():
+        scale = max(float(g.abs().max()), UNET_GRAD_FLOOR * top)
+        e = (got[k] - g).abs() / scale
+        errs.append((float(e.max()), k, float(g.abs().max()) / top))
+        if g.dim() == 3:
+            voxel_err = max(voxel_err, float(e.max()))
+            within += int((e <= UNET_GRAD_RTOL).sum())
+            n_voxel += e.numel()
+        else:
+            worst = max(worst, float(e.max()))
+    errs.sort(reverse=True)
+    share = within / n_voxel if n_voxel else 1.0
+    return worst, share, voxel_err, [(k, f"{e:.2e}", f"{sc:.1e}") for e, k, sc in errs[:3]]
+
+
+def _multi_unet_sp(dev, tmp: Path, d: int, fc: int, model_kwargs, rows: dict) -> None:
+    """(d) the U-Net over an sp group of 2 (gloo on one card; NCCL on two
+    cards) for UNET_SP_STEPS steps against one process."""
+    import torch
+
+    from pixie_tpu_torch.models.unet3d import seeded_state_dict
+    from pixie_tpu_torch.train.trainer import TrainConfig, Trainer, build_model
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    ucfg = dict(mode="discrete", feature_channels=fc, grid_size=d, batch_size=UNET_SP_BATCH,
+                lr=1e-4, **(model_kwargs or {}))
+    params = seeded_state_dict(build_model(TrainConfig(**ucfg)), seed=21)
+    torch.save(params, tmp / "unet.pt")
+    one = Trainer(TrainConfig(**ucfg), device=dev)
+    one.setup(1, params=params)
+    _reset_peak(dev)
+    want = _unet_sp_steps(one, _unet_sp_batches(dev, ucfg, UNET_SP_STEPS), dev)
+    one_peak = _peak_gib(dev)
+    del one
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"multi: (d) one process, the U-Nets at {d}^3 x {fc}, batch {UNET_SP_BATCH}: ms a "
+          f"step {[round(1e3 * w['s'], 1) for w in want]}, peak {one_peak:.2f} GiB", flush=True)
+    kinds = [("gloo", 2)] + ([("nccl", 2)] if cards >= 2 else [])
+    if dev.type == "cuda" and cards < 2:
+        print("multi: (d) the NCCL U-Net needs two cards; this machine has one", flush=True)
+    for backend, world in kinds:
+        res = _spawn_ranks(tmp, world, backend, "unet", {
+            "cfg": ucfg, "params": str(tmp / "unet.pt"), "device": dev.type,
+            "steps": UNET_SP_STEPS})
+        for i, r in enumerate(res):
+            ok = True
+            for step, (got, w) in enumerate(zip(r["steps"], want)):
+                worst, share, voxel, top3 = _grad_report(got["grads"], w["grads"])
+                rel = abs(got["loss"] - w["loss"]) / abs(w["loss"])
+                print(f"multi: (d) dp 1 x sp 2 over {backend}, rank {i}, step {step}: "
+                      f"{1e3 * got['s']:.1f} ms, loss {got['loss']:.7f} vs {w['loss']:.7f} "
+                      f"(rel {rel:.2e}, tol {UNET_SP_LOSS_RTOL}), worst gradient {worst:.2e} "
+                      f"of its scale (tol {UNET_GRAD_RTOL}); the norms' per-voxel affines: "
+                      f"{share:.6f} of elements within {UNET_GRAD_RTOL} (tol {UNET_VOXEL_SHARE}),"
+                      f" worst {voxel:.2e} (tol {UNET_VOXEL_MAX}); worst tensors {top3}",
+                      flush=True)
+                ok = (ok and rel <= UNET_SP_LOSS_RTOL and worst <= UNET_GRAD_RTOL
+                      and share >= UNET_VOXEL_SHARE and voxel <= UNET_VOXEL_MAX)
+            print(f"multi: (d) rank {i} peak {r['peak_gib']:.2f} GiB", flush=True)
+            if not ok:
+                fail(f"phase 11 (d): the sp trainer over {backend} disagrees with one process")
+            rows[f"unet_{backend}"] = 1e3 * statistics.median(g["s"] for g in r["steps"][1:])
+
+
+def _multi_examples(dev, tmp: Path, jelly: int, cli: bool, totals: dict) -> None:
+    """(e) jelly_drop's main (2 frames, 800 B1 and B2 launches) and
+    pipeline_cli_e2e in a subprocess, every artifact present."""
+    from pixie_tpu_torch.examples import jelly_drop
+
+    _reset_counts()
+    jd = jelly_drop.main(["--frames", "2", "--particles", str(jelly), "--out",
+                          str(tmp / "jelly")] + ([] if dev.type == "cuda" else ["--cpu"]))
+    counts = _read_counts()
+    _add_counts(totals, counts)
+    print(f"multi: (e) jelly_drop --frames 2: {len(jd['plys'])} PLY, frame "
+          f"{[round(s, 3) for s in jd['frame_s']]} s; B1/B2 launches "
+          f"{counts['p2g']}/{counts['g2p']}", flush=True)
+    if counts["p2g"] != 800 or counts["g2p"] != 800 or not all(p.exists() for p in jd["plys"]):
+        fail("phase 11 (e): jelly_drop's launches or PLY")
+    if not cli:
+        return
+    t0 = time.time()
+    run = subprocess.run([sys.executable, "-m", "pixie_tpu_torch.examples.pipeline_cli_e2e",
+                          "--out", str(tmp / "cli")], cwd=HERE, capture_output=True,
+                         text=True, timeout=600)
+    sim = tmp / "cli" / "mpm_sim_outputs"
+    art = [sim / m / "demo_obj" / "sample_0" / "sim_info.json" for m in ("neural", "vlm")]
+    art.append(tmp / "cli" / "render_outputs" / "demo_obj" / "sample_0" / "mapped_preds.ply")
+    print(f"multi: (e) pipeline_cli_e2e in a subprocess: rc {run.returncode} in "
+          f"{time.time() - t0:.1f} s; {run.stdout.strip().splitlines()[-1:]}", flush=True)
+    if run.returncode != 0 or not all(a.exists() for a in art):
+        print(run.stderr[-3000:], file=sys.stderr)
+        fail("phase 11 (e): pipeline_cli_e2e failed or left an artifact out")
+
+
+def phase_multi(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = None,
+                jelly: int = 10_000, cli: bool = True) -> dict:
+    """Phase 11: config 5 in one process, on the all-reduce path and the
+    halo path over NCCL (one card a rank) and over 2 gloo ranks sharing
+    cuda:0; the U-Net (at d^3 x fc, the shipped widths unless
+    ``model_kwargs``) over an sp group of 2 against one process; the
+    examples (jelly_drop at ``jelly`` particles; pipeline_cli_e2e with
+    ``cli``).  Returns the launches of the main path's runs, the spawned
+    ranks' included.  On a CPU ``dev`` (a rehearsal) the ranks run on the
+    CPU over gloo only."""
+    from pixie_tpu_torch.sim.types import MPMConfig
+
+    t_phase = time.time()
+    cfg = MPMConfig(**MULTI_CFG)
+    totals: dict = {}
+    rows: dict = {}
+    print("multi: gloo has CUDA all_reduce and broadcast but no CUDA send or recv, so its "
+          "band and halo messages are staged through host memory; the kernels run on the "
+          "card either way", flush=True)
+    ref_x, rows["one_process"] = _multi_reference(dev, cfg, totals)
+    with tempfile.TemporaryDirectory(prefix="pixie_smoke_multi_") as tmp:
+        tmp = Path(tmp)
+        _multi_sharded(dev, cfg, tmp, ref_x, totals, rows)
+        _multi_unet_sp(dev, tmp, d, fc, model_kwargs, rows)
+        _multi_examples(dev, tmp, jelly, cli, totals)
+    print(f"multi: nvidia-smi {_smi()}; ms a substep / step by mode "
+          f"{ {k: round(v, 3) for k, v in rows.items()} }", flush=True)
+    print(f"multi: phase 11 in {time.time() - t_phase:.1f} s; launches {totals}", flush=True)
+    return {k: totals.get(k, 0) for k in KERNELS}
+
 def main() -> int:
     phase_device()
     import torch
@@ -2786,6 +3267,7 @@ def main() -> int:
         paths["vlm"] = phase_vlm(dev, Path(tmp) / "capture", Path(tmp) / "gs",
                                  Path(tmp) / "vlm_field")
     paths["unet_train"] = phase_unet_train(dev)
+    paths["multi"] = phase_multi(dev)
     print(f"launches by path: {paths}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (

@@ -35,6 +35,7 @@ trained by ``pixie_tpu_torch.train.trainer.train_loop``, as in the JAX
 package, outside the pipeline.
 
 Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
+(``--cpu`` among the overrides runs it on the CPU).
 """
 
 from __future__ import annotations
@@ -422,4 +423,6 @@ def main(argv=None, device: str | torch.device = "cuda"):
 
 
 if __name__ == "__main__":
-    main()
+    # ``--cpu`` runs every stage on the CPU (default: the card)
+    cpu = "--cpu" in sys.argv[1:]
+    main([a for a in sys.argv[1:] if a != "--cpu"], device="cpu" if cpu else "cuda")

@@ -89,17 +89,21 @@ def p2g2p(state: MPMState, cfg: MPMConfig, bcs, time, dt,
     return _substep(state, cfg, bcs, time, dt, node_x, False)[0]
 
 
-def _substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, node_x, resort: bool):
+def _substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, node_x, resort: bool,
+             grid_stage=None):
     """p2g2p; with ``resort``, the state is permuted into P2G's cell order
     between P2G and G2P where P2G returns one (on the card).  Returns the
-    state and that order (None if the state kept its order)."""
+    state and that order (None if the state kept its order).
+    ``grid_stage(grid, time) -> grid_v`` replaces ``grid_update`` (the
+    sharded frames of solver_dist.py sum the ranks' grids first)."""
     for b in bcs:
         if isinstance(b, bc_mod.PARTICLE_BC_TYPES):
             state = b.apply(time, dt, state)
     state = compute_stress_from_F_trial(state, cfg, dt)
     grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
                                state.vol, state.selection == 0, cfg, dt, return_order=True)
-    grid_v = grid_update(grid, cfg, dt, time, bcs, node_x)
+    grid_v = (grid_update(grid, cfg, dt, time, bcs, node_x) if grid_stage is None
+              else grid_stage(grid, time))
     order = order if resort else None
     if order is not None:
         state = permute_state(state, order)
@@ -150,10 +154,19 @@ def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     time0, dt = np.float32(time0), np.float32(dt)
     node_x = node_positions(cfg, state.device) if any(
         isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    return run_frame(state, bcs, time0, dt, n_substeps,
+                     lambda st, b, t, resort: _substep(st, cfg, b, t, dt, node_x, resort))
+
+
+def run_frame(state: MPMState, bcs, time0, dt, n_substeps: int, substep) -> MPMState:
+    """The frame loop of ``simulate_substeps``: ``substep(state, bcs, t,
+    resort) -> (state, order)`` at t = f32(time0) + f32(step) * f32(dt),
+    with ``resort`` at substep 0 and every RESORT_EVERY; the particle BCs'
+    masks follow each order, and the state returns in the caller's order."""
     frame = None     # the state's particle i is the caller's particle frame[i]
     for step in range(n_substeps):
         t = np.float32(time0 + np.float32(step) * dt)
-        state, order = _substep(state, cfg, bcs, t, dt, node_x, step % RESORT_EVERY == 0)
+        state, order = substep(state, bcs, t, step % RESORT_EVERY == 0)
         if order is not None:
             bcs = _permute_bcs(bcs, order)
             frame = order if frame is None else frame[order]

@@ -27,6 +27,13 @@ hold different numbers of foreground voxels.  Each rank's loss is its
 numerator over the denominator summed over the ranks (without gradient),
 times the world size: the average of the ranks' gradients is then the
 gradient of one process on the whole batch.
+
+With a ``mesh`` of ``sp`` > 1 (``parallel.mesh.get_mesh(dp, sp)``) each
+rank holds its dp block of the batch and, of each sample, its sp slab of
+the D axis (NCDHW axis 2, the JAX trainer's NDHWC axis 1,
+pixie_tpu/train/trainer.py:209-233); the nets exchange halos and norm
+statistics over the sp group (``models.unet3d.set_spatial_shard``), and
+the per-sample denominators of the continuous loss are summed over it.
 """
 
 from __future__ import annotations
@@ -42,9 +49,11 @@ import torch
 import torch.nn.functional as F
 from torch.nn.parallel import DistributedDataParallel
 
-from pixie_tpu_torch.models.unet3d import RegressionUNet, SegmentationUNet
+from pixie_tpu_torch.models.unet3d import (
+    RegressionUNet, SegmentationUNet, SpatialShard, check_spatial_split, set_spatial_shard,
+)
 from pixie_tpu_torch.parallel.mesh import (
-    all_sum, initialize_distributed, local_batch, local_device, rank, rank_rows,
+    Mesh, all_sum, initialize_distributed, local_batch, local_device, rank, rank_rows,
 )
 from pixie_tpu_torch.train.data import MaterialVoxelDataset, save_splits, train_test_split
 from pixie_tpu_torch.utils.metrics import compute_accuracy, masked_mean
@@ -136,15 +145,23 @@ def discrete_loss(logits, mat_id, mask, background_id: int, sample_w=None, valid
 
 
 def continuous_loss(pred, cont_gt, mask, lambda_cont: float = 1.0, sample_w=None,
-                    weight_total=None):
+                    weight_total=None, den_sum=None):
     """Foreground-masked MSE (training_continuous_mse.py:103-126).
     pred/cont_gt: (N,D,H,W,3); mask (N,D,H,W).  Each sample's masked mean,
     averaged over channels, then over samples weighted by ``sample_w``;
     ``weight_total`` replaces the weights' sum when the batch is one rank's
-    part of a global batch."""
+    part of a global batch.  ``den_sum`` sums the per-sample mask counts
+    when the samples are slabs of the D axis (each rank's means are then
+    its slab's parts of the samples' means)."""
     fg = mask[..., None]
     diff_sq = (pred - cont_gt) ** 2
-    per_sample = masked_mean(diff_sq, fg.expand_as(diff_sq), (1, 2, 3))
+
+    def mean(x, m):
+        if den_sum is None:
+            return masked_mean(x, m, (1, 2, 3))
+        return (x * m).sum((1, 2, 3)) / (den_sum(m.sum((1, 2, 3))).clamp(min=1) + 1e-8)
+
+    per_sample = mean(diff_sq, fg.expand_as(diff_sq))
     if sample_w is not None:
         den = sample_w.sum() if weight_total is None else weight_total
         loss = (per_sample.mean(-1) * sample_w).sum() / den.clamp(min=1.0)
@@ -152,22 +169,31 @@ def continuous_loss(pred, cont_gt, mask, lambda_cont: float = 1.0, sample_w=None
     else:
         loss = per_sample.mean() * lambda_cont
     aux = {
-        "density_mse": masked_mean(diff_sq[..., 0:1], fg, (1, 2, 3)).mean(),
-        "youngs_mse": masked_mean(diff_sq[..., 1:2], fg, (1, 2, 3)).mean(),
-        "poisson_mse": masked_mean(diff_sq[..., 2:3], fg, (1, 2, 3)).mean(),
+        "density_mse": mean(diff_sq[..., 0:1], fg).mean(),
+        "youngs_mse": mean(diff_sq[..., 1:2], fg).mean(),
+        "poisson_mse": mean(diff_sq[..., 2:3], fg).mean(),
     }
     return loss, aux
 
 
 class Trainer:
-    """Trainer of either U-Net: one process, or one rank of a DDP group."""
+    """Trainer of either U-Net: one process, or one rank of a DDP group.
+    ``mesh`` (``parallel.mesh.get_mesh``) splits the ranks into dp x sp;
+    None puts them all on dp."""
 
-    def __init__(self, cfg: TrainConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: TrainConfig, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         # join torchrun's group first (a no-op for one process), as the JAX
         # trainer joins the pod runtime (training_utils.py:50-55 ddp_setup)
         self.world = initialize_distributed(device)
         self.rank = rank()
+        self.mesh = Mesh(self.world, 1, self.rank) if mesh is None else mesh
+        if self.mesh.dp * self.mesh.sp != self.world:
+            raise ValueError(f"mesh {self.mesh.shape} does not cover {self.world} ranks")
+        self.shard = SpatialShard.of(self.mesh)
+        if self.shard is not None:
+            check_spatial_split(cfg.grid_size, len(cfg.channel_mult), self.mesh.sp)
         self.device = local_device(device)
         if self.device.type == "cuda":
             if self.world > 1:
@@ -211,15 +237,23 @@ class Trainer:
         self.steps_per_epoch = max(steps_per_epoch, 1)
         self.opt = make_optimizer(self.cfg, self.model.parameters())
         self.step = 0
+        set_spatial_shard(self.model, self.shard)
         self.net = self.model
+        # DDP over the whole world: with the losses over global denominators,
+        # its average of the ranks' partial gradients is the gradient; the
+        # slab-sliced norm weights get zeros outside their slab
         if self.world > 1:
             self.net = DistributedDataParallel(
                 self.model, device_ids=[self.device.index] if self.device.type == "cuda"
                 else None)
 
     def _tensors(self, batch, sample_w):
+        """This rank's rows (its dp block, unless ``sample_w`` says the rows
+        are given) and, on an sp mesh, their slab of the D axis (axis 1)."""
         if sample_w is None:
-            batch, sample_w = local_batch(batch, self.world, self.rank)
+            batch, sample_w = local_batch(batch, self.mesh.dp, self.mesh.dp_rank)
+        if self.shard is not None:
+            batch = tuple(x[:, self.shard.planes(x.shape[1])] for x in batch)
         feat, target, mask = (torch.as_tensor(x).to(self.device) for x in batch)
         w = torch.as_tensor(sample_w, dtype=torch.float32, device=self.device)
         return feat.to(torch.float32), target, mask.to(torch.float32), w
@@ -234,8 +268,19 @@ class Trainer:
         return acc
 
     def _mean_over_ranks(self, aux: dict) -> dict:
-        # every rank holds the same number of rows (mesh.rank_rows)
-        return {k: all_sum(v) / self.world for k, v in aux.items()}
+        # every dp block holds the same number of rows (mesh.rank_rows); an
+        # sp group's ranks hold parts of its rows' means, which add up
+        return {k: all_sum(v) / self.mesh.dp for k, v in aux.items()}
+
+    def _sp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over this rank's sp group, without gradient."""
+        t = t.detach().clone()
+        torch.distributed.all_reduce(t, group=self.shard.group)
+        return t
+
+    def _continuous(self, out, target, mask, w=None, weight_total=None):
+        return continuous_loss(out, target, mask, self.cfg.lambda_cont, w, weight_total,
+                               den_sum=self._sp_sum if self.shard is not None else None)
 
     def train_step(self, batch, sample_w=None) -> tuple[float, dict]:
         """One update on a global batch: (feat, mat_id, mask) discrete or
@@ -255,7 +300,8 @@ class Trainer:
             loss = discrete_loss(out, target, mask, cfg.background_id, w, valid_total)
             aux = {"accuracy": self._accuracy(out.detach(), target)}
         else:
-            loss, aux = continuous_loss(out, target, mask, cfg.lambda_cont, w, all_sum(w.sum()))
+            # an sp group's ranks hold the same rows: their weights count once
+            loss, aux = self._continuous(out, target, mask, w, all_sum(w.sum()) / self.mesh.sp)
             aux = self._mean_over_ranks({k: v.detach() for k, v in aux.items()})
         (loss * self.world if self.world > 1 else loss).backward()
         if cfg.grad_clip:
@@ -271,7 +317,7 @@ class Trainer:
         out = self.model(feat)
         if cfg.mode == "discrete":
             return {"accuracy": float(self._accuracy(out, target))}
-        _, aux = continuous_loss(out, target, mask)
+        _, aux = self._continuous(out, target, mask)
         return {k: float(v) for k, v in self._mean_over_ranks(aux).items()}
 
     # -- epoch_k.pth checkpoints ----------------------------------------------

@@ -100,6 +100,11 @@ def viz_seg_candidates(
         occ = np.load(mask_p).astype(bool)
     else:
         occ = np.ones(feats.shape[:-1], bool)
+    if not occ.any():
+        # a field too thin for the fine grid's alpha threshold (JAX's chain
+        # fails here on an empty array)
+        logging.warning("no occupied voxel in %s; skipping candidate viz", src)
+        return {}
     coords = np.stack(np.nonzero(occ), axis=-1).astype(np.float32)
     coords /= max(feats.shape[0] - 1, 1)
     fo = feats[torch.as_tensor(occ, device=feats.device)]

@@ -30,6 +30,11 @@ renders, their gradients and the CLIP tower (plain PyTorch) are held
 against the CPU by the bounds their CPU tests hold them to JAX by.  A U-Net
 training step (plain PyTorch, TF32 off) is held against the CPU's, and DDP
 over NCCL (two or more cards) against one process on the whole batch,
+each gradient within 1e-3 of its scale.  The sharded MPM frames and the
+U-Net over an sp group run on 2 and 4 NCCL ranks, one card a rank
+(skipped with fewer cards), against one process on the first card: x
+within PERF.md's unfused criterion (mean 1e-4, max 1e-2 cell), each
+rank's B1 and B2 launches equal to its substeps; the loss to rel 1e-5,
 each gradient within 1e-3 of its scale.  This file imports no JAX package
 module.
 """
@@ -1030,3 +1035,96 @@ def test_ddp_nccl_gradient_equals_one_process(cuda_device, tmp_path):
             assert r[i]["world"] == world
             assert r[i]["loss"] == pytest.approx(loss, rel=1e-5)
             assert _grad_err(r[i]["grads"], want) <= 1e-3
+
+
+# -- the sharded paths over NCCL, one card a rank -------------------------------------
+
+def _cards(world):
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards (NCCL, one card a rank)")
+
+
+def _x_close_in_cells(got, want, inv_dx):
+    """PERF.md's criterion for unfused frames in two particle orders: mean
+    |dx| <= 1e-4 cell, max <= 1e-2 cell (B1 adds float atomics in run
+    order, and the ranks' grids are summed in another)."""
+    d = np.abs(got - want) * inv_dx
+    assert d.mean() <= 1e-4 and d.max() <= 1e-2, (d.mean(), d.max())
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_mpm_nccl(cuda_device, tmp_path, world):
+    """The all-reduce path (n_grid 32) and the halo path (n_grid 48 on 2
+    cards, 96 on 4) on NCCL ranks against one process on the first card;
+    each rank's B1 and B2 launches equal its substeps."""
+    from torch_dist_workers import mpm_inputs, run_ranks, torch_bcs, torch_state
+
+    from pixie_tpu_torch.sim.solver import simulate_substeps
+
+    _cards(world)
+    grav = (0.0, 0.0, -9.8)
+    halo_grid = 48 if world == 2 else 96
+    cases = [dict(inputs=dict(n=20_000, seed=6), cfg=dict(n_grid=32, grid_lim=2.0, gravity=grav,
+                                                          active_materials=(0,)),
+                  substeps=20, path="rollout",
+                  bcs=[("collider", dict(point=(1.0, 1.0, 0.75), normal=(0.0, 0.0, 1.0)))]),
+             dict(inputs=dict(n=20_000, seed=7), cfg=dict(n_grid=halo_grid, grid_lim=2.0,
+                                                          gravity=grav, active_materials=(0,)),
+                  substeps=20, path="halo",
+                  bcs=[("impulse", dict(force=(0.0, 0.0, 20.0), z=1.0))])]
+    res = run_ranks(tmp_path, world, "mpm", {"cases": cases, "gloo": False}, device="cuda")
+    for i, case in enumerate(cases):
+        d = mpm_inputs(**case["inputs"])
+        cfg = MPMConfig(**case["cfg"])
+        one = simulate_substeps(torch_state(d, cuda_device),
+                                cfg, torch_bcs(case["bcs"], d["x"], cuda_device), 0.0, DT,
+                                case["substeps"])
+        for r in res:
+            assert np.isfinite(r[i]["x"]).all()
+            assert r[i]["launches"] == (case["substeps"], case["substeps"])
+            _x_close_in_cells(r[i]["x"], to_np(one.x), cfg.inv_dx)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_unet_sp_nccl(cuda_device, tmp_path, world):
+    """The U-Net trainer on (1, 2) or (2, 2) NCCL ranks against one process
+    on the first card: the loss to rel 1e-5, each gradient within 1e-3 of
+    its scale (phase 9's card bound), or as close to the float64 gradient
+    as one process's own where a LeakyReLU input within rounding of 0
+    takes the other slope (tests/torch_dist_workers.check_sp_grads)."""
+    from torch_dist_workers import (
+        check_sp_grads, load_batches, run_ranks, unet_grads64, unet_steps,
+    )
+    from unet_train_parity import seeded_params
+
+    from pixie_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    _cards(world)
+    dp = world // 2
+    cfg_kw = dict(mode="discrete", batch_size=2 * dp, lr=1e-3, feature_channels=16, cond_dim=8,
+                  model_channels=8, num_res_blocks=1, channel_mult=(1, 2), grid_size=8)
+    params = seeded_params(TrainConfig(**cfg_kw), seed=12)
+    torch.save(params, tmp_path / "p.pt")
+    rng = np.random.default_rng(13)
+    paths = []
+    for i in range(2):
+        b = 2 * dp
+        mask = (rng.uniform(size=(b, 8, 8, 8)) < 0.5).astype(np.float32)
+        np.savez(tmp_path / f"b{i}.npz", feat=rng.normal(size=(b, 8, 8, 8, 16)).astype(np.float32),
+                 target=np.where(mask > 0, rng.integers(0, 7, mask.shape), 7), mask=mask)
+        paths.append(str(tmp_path / f"b{i}.npz"))
+    run = dict(dp=dp, sp=2, cfg=cfg_kw, params=str(tmp_path / "p.pt"), batches=paths)
+    res = run_ranks(tmp_path, world, "unet", {"runs": [run], "gloo": False}, device="cuda")
+
+    def one():
+        t = Trainer(TrainConfig(**cfg_kw), device=cuda_device)
+        t.setup(1, params=params)
+        return t
+
+    batches = load_batches(paths)
+    want = unet_steps(one, batches)
+    want64 = [unet_grads64(cfg_kw, params, b, cuda_device) for b in batches]
+    for r in res:
+        for got, w, w64 in zip(r[0], want, want64):
+            assert got["loss"] == pytest.approx(w["loss"], rel=1e-5)
+            check_sp_grads(got["grads"], w["grads"], w64, 1e-3)

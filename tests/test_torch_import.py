@@ -56,7 +56,14 @@ def test_module_list_covers_the_slice():
               "pixie_tpu_torch.vlm_labeler.agent", "pixie_tpu_torch.vlm_labeler.class_instructions",
               "pixie_tpu_torch.vlm_labeler.stages", "pixie_tpu_torch.vlm_labeler.chain",
               "pixie_tpu_torch.utils.proc", "pixie_tpu_torch.utils.observability",
-              "pixie_tpu_torch.utils.mesh_paint", "pixie_tpu_torch.render"):
+              "pixie_tpu_torch.utils.mesh_paint", "pixie_tpu_torch.render",
+              "pixie_tpu_torch.sim.solver_dist", "pixie_tpu_torch.data_curation",
+              "pixie_tpu_torch.data_curation.curation",
+              "pixie_tpu_torch.data_curation.manual_filter", "pixie_tpu_torch.examples",
+              "pixie_tpu_torch.examples.jelly_drop", "pixie_tpu_torch.examples.pixie_e2e",
+              "pixie_tpu_torch.examples.pipeline_cli_e2e",
+              "pixie_tpu_torch.examples.walkthrough",
+              "pixie_tpu_torch.examples.real_scene_walkthrough"):
         assert m in MODULES
 
 
@@ -71,7 +78,13 @@ def test_no_jax_after_importing_every_module():
                                    "pixie_tpu_torch.train.trainer",
                                    "pixie_tpu_torch.train.inspect_ranges",
                                    "pixie_tpu_torch.render",
-                                   "pixie_tpu_torch.vlm_labeler.chain"])
+                                   "pixie_tpu_torch.vlm_labeler.chain",
+                                   "pixie_tpu_torch.sim.solver_dist",
+                                   "pixie_tpu_torch.data_curation.manual_filter",
+                                   "pixie_tpu_torch.examples.jelly_drop",
+                                   "pixie_tpu_torch.examples.pipeline_cli_e2e",
+                                   "pixie_tpu_torch.examples.walkthrough",
+                                   "pixie_tpu_torch.examples.real_scene_walkthrough"])
 def test_no_jax_from_entry_point(entry):
     assert _import_in_fresh_interpreter([entry]) == []
 

@@ -281,3 +281,21 @@ def test_pipeline_main_vlm_mode(tmp_path, no_clip_weights):
     with pytest.raises(ValueError, match="unknown material_mode"):
         pipeline.main(["obj_id=obj", "material_mode=other",
                        f"paths.base_path={tmp_path / 'torch'}"], device="cpu")
+
+
+def test_viz_candidates_skip_an_empty_fine_grid(tmp_path):
+    """A field too thin for the fine grid's alpha threshold leaves its mask
+    empty: the candidate viz is skipped (JAX's chain fails on the empty
+    array) and the chain goes on without heatmaps."""
+    from pixie_tpu_torch.vlm_labeler.chain import viz_seg_candidates
+
+    ro = tmp_path / "render_outputs"
+    ro.mkdir()
+    np.savez(ro / "clip_features_8.npz", grid_shape=np.array([8, 8, 8]))
+    np.save(ro / "clip_features_8_features.npy", np.ones((8, 8, 8, 4), np.float16))
+    np.save(ro / "clip_features_8_mask.npy", np.zeros((8, 8, 8), bool))
+    out = viz_seg_candidates({"render_output": str(ro), "vlm_base_dir": str(tmp_path / "vlm"),
+                              "nerf_output": str(tmp_path / "no_field")},
+                             [["a", "b"]], query_embs=np.eye(2, 4, dtype=np.float32),
+                             grid_size=8, device="cpu")
+    assert out == {}
