@@ -167,6 +167,19 @@ Phases (any failure exits non-zero):
                 jelly_drop's main at 10k particles for 2 frames (800 B1 and
                 B2 launches) and pipeline_cli_e2e in a subprocess, every
                 artifact present
+ 12. capture  — the capture stages and the Blender boundary on the host (no
+                kernel): pipeline.download_assets (without objaverse: a
+                warning; then the skip of a non-empty directory),
+                pipeline.render_blender_images and
+                data_curation.render_pool.render_object (through the real
+                run_cmd) against a recording ``blender`` in a temporary
+                directory; each argv names an existing script under
+                pixie_tpu_torch/blender/, the capture's transforms.json is
+                written; the phase's seconds beside nvidia-smi's name and
+                power limit
+An audit hook installed at the start records every file under pixie_tpu/
+the script opens or runs (pixie_tpu_torch/utils/file_audit.py); a line
+before the kernel JSON prints its count, and the script fails unless it is 0.
 The line before the last is the kernel JSON (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks, counted from this run's inputs,
@@ -3242,11 +3255,104 @@ def phase_multi(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = Non
     print(f"multi: phase 11 in {time.time() - t_phase:.1f} s; launches {totals}", flush=True)
     return {k: totals.get(k, 0) for k in KERNELS}
 
+
+RECORDING_BLENDER = """#!{python}
+import json, sys
+from pathlib import Path
+
+# a stand-in for Blender: records its argv, writes the capture's
+# transforms.json into --out, ends as Blender does
+with open(Path(__file__).resolve().parent / "argv.jsonl", "a") as f:
+    f.write(json.dumps(sys.argv[1:]) + "\\n")
+args = sys.argv[sys.argv.index("--") + 1:] if "--" in sys.argv else []
+if "--out" in args:
+    out = Path(args[args.index("--out") + 1])
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "transforms.json").write_text(json.dumps({{"frames": []}}))
+print("Blender quit")
+"""
+
+
+def recording_blender(bin_dir: Path) -> Path:
+    """A ``blender`` executable in ``bin_dir`` (this interpreter runs it) that
+    appends each argv, as a JSON line, to ``bin_dir/argv.jsonl``."""
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    exe = bin_dir / "blender"
+    exe.write_text(RECORDING_BLENDER.format(python=sys.executable))
+    exe.chmod(0o755)
+    return exe
+
+
+def blender_script(argv: list[str]) -> Path:
+    """The bpy script an argv of Blender runs (``--python`` or ``-P``)."""
+    flag = "--python" if "--python" in argv else "-P"
+    return Path(argv[argv.index(flag) + 1])
+
+
+@contextlib.contextmanager
+def _without_objaverse():
+    """``import objaverse`` fails inside (no download is ever tried)."""
+    saved = sys.modules.get("objaverse", ...)
+    sys.modules["objaverse"] = None
+    try:
+        yield
+    finally:
+        if saved is ...:
+            del sys.modules["objaverse"]
+        else:
+            sys.modules["objaverse"] = saved
+
+
+def phase_capture() -> dict:
+    """Phase 12: the capture stages and the render pool's job against a
+    recording Blender; returns their launches (none)."""
+    from pixie_tpu_torch import pipeline
+    from pixie_tpu_torch.config import compose
+    from pixie_tpu_torch.data_curation import render_pool
+
+    t0 = time.time()
+    _reset_counts()
+    scripts = (HERE / "pixie_tpu_torch" / "blender").resolve()
+    with tempfile.TemporaryDirectory(prefix="pixie_smoke_capture_") as tmp:
+        tmp = Path(tmp)
+        blender = recording_blender(tmp / "bin")
+        obj = "capture_obj"
+        cfg = compose(overrides=[f"obj_id={obj}", f"paths.base_path={tmp}"])
+        data = tmp / "data" / obj
+        with _without_objaverse():
+            pipeline.download_assets(data, obj)
+        data.mkdir(parents=True)
+        (data / f"{obj}.glb").write_bytes(b"glTF")
+        pipeline.download_assets(data, obj)
+        pipeline.render_blender_images(data, tmp / "data", obj, cfg.data_rendering,
+                                       blender=str(blender))
+        pooled = render_pool.render_object({
+            "uid": obj, "glb": str(data / f"{obj}.glb"), "output_dir": str(tmp / "pool" / obj),
+            "gpu_id": 0, "blender_path": str(blender), "views": 4, "resolution": 64})
+        argvs = [json.loads(line) for line in
+                 (blender.parent / "argv.jsonl").read_text().splitlines()]
+        run = [blender_script(a) for a in argvs]
+        ok = (pooled and len(run) == 2 and (data / "transforms.json").exists()
+              and all(s.is_file() and s.resolve().parent == scripts for s in run))
+    counts = _read_counts()
+    print(f"capture: Blender ran {[str(s) for s in run]}; render_object "
+          f"{pooled}; launches {sum(counts.values())}", flush=True)
+    print(f"capture: phase 12 in {time.time() - t0:.3f} s; nvidia-smi {_smi()}", flush=True)
+    if not ok or any(counts.values()):
+        fail(f"phase 12: the capture stages ran {argvs}")
+    return counts
+
+
 def main() -> int:
+    sys.path.insert(0, str(HERE))
+    try:
+        from pixie_tpu_torch.utils.file_audit import watch_jax_package
+    except ImportError:
+        fail(f"pixie_tpu_torch not found beside {Path(__file__).name}")
+    jax_files = watch_jax_package(HERE)
     phase_device()
     import torch
 
-    sys.path.insert(0, str(HERE))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
@@ -3268,12 +3374,17 @@ def main() -> int:
                                  Path(tmp) / "vlm_field")
     paths["unet_train"] = phase_unet_train(dev)
     paths["multi"] = phase_multi(dev)
+    paths["capture"] = phase_capture()
     print(f"launches by path: {paths}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "flax", "pixie_tpu", "transformers", "regex"))
     if leaked:
         fail(f"JAX, the JAX package, transformers or regex was imported: {leaked[:5]}")
+    print(f"audit: {len(jax_files)} files of pixie_tpu/ opened or run"
+          + (f": {jax_files[:5]}" if jax_files else ""), flush=True)
+    if jax_files:
+        fail(f"the JAX package's files were opened or run: {jax_files[:5]}")
     rows = []
     for name, src, replaces in (
             ("p2g", "transfer.cu", "pixie_tpu/ops/transfer.py:361"),

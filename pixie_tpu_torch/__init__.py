@@ -25,6 +25,9 @@ names mirror the JAX package so each counterpart is easy to find:
                                   U-Nets or the VLM chain -> material PLY ->
                                   MPM rollout (-> rendered frames) stages
   * ``pixie_tpu_torch.render``  — the output renders (``python -m``)
+  * ``pixie_tpu_torch.blender`` — the bpy scripts Blender runs for the
+                                  capture and the Blender render modes
+  * ``pixie_tpu_torch/conf/``   — the YAML config tree ``config.compose`` reads
 
 The package imports ``torch`` and never ``jax``.
 """

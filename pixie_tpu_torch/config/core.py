@@ -14,8 +14,8 @@ reimplements the subset pixie uses without the hydra dependency:
   * dotlist overrides ``a.b=value`` (with ``+a.b=value`` to add new keys).
 
 Copied from pixie_tpu/config/core.py (yaml only) so that the port imports
-nothing of the JAX package.  The YAML tree itself, ``pixie_tpu/conf/``, is
-the config contract: ``compose`` reads it by path, as data.
+nothing of the JAX package.  ``compose`` reads the port's own copy of the
+YAML tree, ``pixie_tpu_torch/conf/`` (byte for byte ``pixie_tpu/conf/``).
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ from typing import Any
 import yaml
 
 _INTERP_RE = re.compile(r"\$\{([^${}]+)\}")
-# the YAML tree shared with the JAX package (data, not an import)
-CONF_DIR = Path(__file__).resolve().parents[2] / "pixie_tpu" / "conf"
+# the port's YAML tree, shipped as package data
+CONF_DIR = Path(__file__).resolve().parents[1] / "conf"
 
 
 class Config(dict):
@@ -150,8 +150,7 @@ def compose(
 ) -> Config:
     """Compose a config like ``hydra.main`` would.
 
-    ``config_dir`` defaults to the repository's ``pixie_tpu/conf`` tree,
-    read by path.
+    ``config_dir`` defaults to the port's ``pixie_tpu_torch/conf`` tree.
     """
     if config_dir is None:
         config_dir = CONF_DIR

@@ -1,5 +1,12 @@
-"""The stages of ``pipeline.py`` that the port holds:
+"""The stages of ``pipeline.py``, in the order ``main`` runs them:
 
+  download_assets              — the Objaverse download of the object (needs
+      the ``objaverse`` package and a network; warns without them and
+      leaves the data to be provided by hand)  (pipeline.py:46-56)
+  render_blender_images        — the object's GLB -> Blender (the binary,
+      skipped without it) running the port's
+      blender/generate_blendernerf_data.py -> PNG views + transforms.json
+      in data/{obj_id}  (pipeline.py:59-84)
   train_nerf                   — the object's multi-view capture (+ CLIP
       patch features of its views, extracted and cached as
       clip_patch_features.npy) -> the distilled feature field ->
@@ -27,10 +34,9 @@
 The stage functions take explicit arguments (no config tree needed), apart
 from the VLM chain's, which reads the tree as JAX's does; ``main(argv)``
 composes the same ``key=value`` overrides as ``pipeline.py`` through
-``pixie_tpu_torch.config`` (over the shared YAML tree) and runs the
+``pixie_tpu_torch.config`` (over the port's YAML tree) and runs the
 stages, joining the voxelizer's feature write before it returns
-(pipeline.py:175-185, 408-410).  The Blender render stage that writes the
-capture is not in this port.  The U-Nets the neural stage reads are
+(pipeline.py:175-185, 408-410).  The U-Nets the neural stage reads are
 trained by ``pixie_tpu_torch.train.trainer.train_loop``, as in the JAX
 package, outside the pipeline.
 
@@ -41,6 +47,7 @@ Run: ``python -m pixie_tpu_torch.pipeline obj_id=<id> paths.base_path=<dir>``
 from __future__ import annotations
 
 import logging
+import shutil
 import sys
 import time
 from collections.abc import Mapping
@@ -60,6 +67,61 @@ from pixie_tpu_torch.voxel.map_pred_to_coords import map_pred_to_ply
 
 REPO_NORMALIZATION = (Path(__file__).resolve().parent.parent / "normalization_stats"
                       / "normalization_ranges.yaml")
+# the bpy script that renders the capture (run by Blender, never imported)
+CAPTURE_SCRIPT = Path(__file__).resolve().parent / "blender" / "generate_blendernerf_data.py"
+
+
+def download_assets(data_dir: str | Path, obj_id: str) -> None:
+    """The Objaverse download of ``obj_id``, skipped when ``data_dir`` holds
+    anything.  Without the ``objaverse`` package, or when its download
+    fails, it warns: the data is then provided by hand."""
+    obj_dir = Path(data_dir)
+    if obj_dir.exists() and any(obj_dir.iterdir()):
+        logging.info("[download] %s exists, skipping", obj_dir)
+        return
+    try:
+        import objaverse  # noqa: PLC0415
+
+        objaverse.load_objects([obj_id])
+    except Exception as e:  # noqa: BLE001 - the pipeline goes on with local data
+        logging.warning("[download] objaverse unavailable (%s); provide data manually", e)
+
+
+def render_blender_images(
+    data_dir: str | Path,
+    glb_dir: str | Path,
+    obj_id: str,
+    data_rendering: Mapping,
+    blender: str = "blender",
+    overwrite: bool = False,
+) -> None:
+    """Blender renders the object's GLB (the first ``data_dir/*.glb``, else
+    ``glb_dir/{obj_id}*.glb``) into ``data_dir`` as PNG views and a
+    transforms.json, through ``CAPTURE_SCRIPT``, with the views, camera
+    distances and resolution of ``data_rendering`` (the config tree's
+    node).  Skipped when transforms.json exists and ``overwrite`` is off,
+    and with a warning when ``blender`` is not found; raises
+    FileNotFoundError when no GLB is found."""
+    from pixie_tpu_torch.utils.proc import run_cmd  # noqa: PLC0415
+
+    data_dir = Path(data_dir)
+    if (data_dir / "transforms.json").exists() and not overwrite:
+        logging.info("[blender] transforms.json exists, skipping")
+        return
+    if shutil.which(blender) is None:
+        logging.warning("[blender] blender binary not found; skipping render stage")
+        return
+    glbs = list(data_dir.glob("*.glb")) or list(Path(glb_dir).glob(f"{obj_id}*.glb"))
+    if not glbs:
+        raise FileNotFoundError(f"no GLB asset found for {obj_id} under {data_dir}")
+    run_cmd([
+        blender, "--background", "--python", str(CAPTURE_SCRIPT), "--",
+        "--glb", str(glbs[0]), "--out", str(data_dir),
+        "--num-views", str(data_rendering["num_views"]),
+        "--dist-min", str(data_rendering["camera_dist_min"]),
+        "--dist-max", str(data_rendering["camera_dist_max"]),
+        "--resolution", str(data_rendering["resolution"]),
+    ])
 
 
 def has_capture(data_dir: str | Path) -> bool:
@@ -140,7 +202,7 @@ def train_gaussians(
     """3DGS training of the capture in ``data_dir`` into ``gs_output``;
     returns the trained parameters, or None when ``gs_output/point_cloud``
     exists and ``overwrite`` is off, or when ``data_dir`` holds no capture
-    (the Blender render stage that writes one is not ported)."""
+    (``render_blender_images`` writes one where Blender is found)."""
     from pixie_tpu_torch.recon.train_gaussians import (  # noqa: PLC0415
         train_gaussian_splatting,
     )
@@ -343,9 +405,9 @@ def run_physics_simulation(
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
-    """``pipeline.py``'s field and 3DGS training, voxelizer, material stage
-    (``material_mode``: neural or vlm) and rollout with its ``key=value``
-    overrides."""
+    """``pipeline.py``'s stages (download, Blender capture, field and 3DGS
+    training, voxelizer, material stage (``material_mode``: neural or vlm)
+    and rollout) with its ``key=value`` overrides."""
     from pixie_tpu_torch.config import compose  # noqa: PLC0415
     from pixie_tpu_torch.utils.paths import (  # noqa: PLC0415
         create_directories, get_output_paths, resolve_paths,
@@ -360,6 +422,10 @@ def main(argv=None, device: str | torch.device = "cuda"):
     create_directories(paths)
 
     t0 = time.time()
+    download_assets(paths["data_dir"], cfg.obj_id)
+    render_blender_images(paths["data_dir"], cfg.paths.data_dir, cfg.obj_id, cfg.data_rendering,
+                          blender=str(cfg.paths.get("blender_path", "blender")),
+                          overwrite=bool(cfg.overwrite))
     train_nerf(paths["data_dir"], paths["nerf_output"], training_3d=cfg.training_3d,
                overwrite=bool(cfg.overwrite), device=device)
     train_gaussians(paths["data_dir"], paths["gs_output"],

@@ -29,7 +29,7 @@ from pixie_tpu_torch.config import compose
 from pixie_tpu_torch.utils.paths import get_output_paths, resolve_paths
 
 # the bpy scripts Blender runs (data for the Blender binary, never imported)
-BLENDER_SCRIPTS = Path(__file__).resolve().parent.parent / "pixie_tpu" / "blender"
+BLENDER_SCRIPTS = Path(__file__).resolve().parent / "blender"
 
 
 def _orbit_camera(vi: int, n_views: int, radius: float):

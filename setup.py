@@ -7,8 +7,8 @@ setup(
     packages=find_packages(exclude=("tests",)),
     package_data={
         "pixie_tpu": ["conf/**/*.yaml", "conf/*.yaml"],
-        # CUDA sources of the PyTorch port, built with nvcc at first use
-        "pixie_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        # the PyTorch port's CUDA sources (built with nvcc at first use) and YAML tree
+        "pixie_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "conf/*.yaml", "conf/**/*.yaml"],
     },
     python_requires=">=3.10",
     install_requires=[
