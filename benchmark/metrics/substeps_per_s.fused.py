@@ -1,0 +1,1 @@
+from benchmark.readers import rate as read  # noqa: F401
