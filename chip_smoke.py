@@ -1505,8 +1505,8 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
         substeps = info["substeps_per_frame"]
         print(f"mpm (point cloud): {info['n_particles']} particles, 1 frame x {substeps} "
               f"substeps, materials {info['active_materials']}, "
-              f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
-              f"{info['median_frame_s']:.3f} s; launches {pc_launches}", flush=True)
+              f"median frame {info['median_frame_s']:.3f} s; launches {pc_launches}",
+              flush=True)
         if pc_launches != _counts(p2g=substeps, g2p=substeps):
             fail(f"point-cloud launches {pc_launches} != substeps run {substeps}")
         frames = sorted((sim_out / "ply_files").glob("frame_*.ply"))
@@ -1531,8 +1531,7 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
         substeps = n_frames * info["substeps_per_frame"]
         print(f"mpm (GS): {info['n_particles']} gaussians, {n_frames} frames x "
               f"{info['substeps_per_frame']} substeps, materials {info['active_materials']}, "
-              f"{info['substeps_per_sec']:.2f} substeps/s, median frame "
-              f"{info['median_frame_s']:.3f} s, median render {info['median_render_ms']:.1f} ms "
+              f"median frame {info['median_frame_s']:.3f} s, median render {info['median_render_ms']:.1f} ms "
               f"(render + PNG + PLY); launches {launches}", flush=True)
         if launches != _counts(p2g=substeps, g2p=substeps, gs_blend=n_frames):
             fail(f"GS launches {launches} != {substeps} substeps, {n_frames} frames")
@@ -1863,7 +1862,7 @@ def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = 
               f"{ {k: round(v, 4) for k, v in timings.items()} }; {int(mask.sum())} occupied "
               f"voxels of {d}^3; U-Net stage {seg_s:.2f} s; mpm (point cloud) "
               f"{info['n_particles']} particles, 1 frame x {s} substeps, "
-              f"{info['substeps_per_sec']:.2f} substeps/s; launches {launches}", flush=True)
+              f"median frame {info['median_frame_s']:.3f} s; launches {launches}", flush=True)
         print(f"voxelize: nvidia-smi {_smi()}", flush=True)
         if not mask_range[0] <= int(mask.sum()) <= mask_range[1]:
             fail(f"the voxelizer's mask holds {int(mask.sum())} voxels, outside {mask_range}")
@@ -2749,7 +2748,7 @@ def phase_vlm(dev, capture: Path, gs_dir: Path, field_dir: Path, d: int = 64,
         launches = _read_counts()
         s = info["substeps_per_frame"]
         print(f"vlm: mpm (point cloud) of segmented_semantics.ply: {info['n_particles']} "
-              f"particles, 1 frame x {s} substeps, {info['substeps_per_sec']:.2f} substeps/s; "
+              f"particles, 1 frame x {s} substeps, median frame {info['median_frame_s']:.3f} s; "
               f"launches {launches}", flush=True)
         if launches != _counts(p2g=s, g2p=s) or not info["final_state_finite"] or \
                 info["n_particles"] != int(mask.sum()):

@@ -149,13 +149,22 @@ def mean_run_length(x: torch.Tensor, active: torch.Tensor, cfg: MPMConfig,
     their array order: live lanes (active, finite, a stencil node in the
     grid) over runs, a run being adjacent live lanes of one warp with one
     base cell.  Plain PyTorch, on any device."""
-    n, g = x.shape[0], cfg.n_grid
-    base = torch.floor(x * cfg.inv_dx - 0.5)
-    live = active & torch.isfinite(x).all(1) & ((base >= -2) & (base <= g - 1)).all(1)
-    b = torch.where(live[:, None], base, 0.0).to(torch.int64) + 2
-    label = torch.where(live, (b[:, 0] * (g + 2) + b[:, 1]) * (g + 2) + b[:, 2], -1)
-    lane = torch.arange(n, device=x.device) % warp
-    prev_same = torch.zeros_like(live)
-    prev_same[1:] = (label[1:] == label[:-1]) & live[:-1]
-    heads = live & ((lane == 0) | ~prev_same)
-    return float(live.sum()) / max(int(heads.sum()), 1)
+    live, runs = run_counts(x, active, cfg, warp)
+    return float(live) / max(int(runs), 1)
+
+
+def run_counts(x: torch.Tensor, active: torch.Tensor, cfg: MPMConfig,
+               warp: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mean_run_length``'s live lanes and runs, as 0-d int64 tensors on
+    ``x``'s device (no host sync): each live lane heads a run but where the
+    lane before it, in its warp, has the same base cell.  The base cells
+    are read from P2G's bin keys (``transfer.p2g_bin_keys``: B1's key kernel
+    on the card), whose live lanes are these."""
+    nb, hbits = transfer.bin_layout(cfg.n_grid)
+    cell = transfer.p2g_bin_keys(x, active, cfg.n_grid, cfg.inv_dx) >> (
+        hbits - transfer._CELL_BITS)
+    live = cell != nb ** 3 << transfer._CELL_BITS
+    joined = live[1:] & (cell[1:] == cell[:-1])
+    joined[warp - 1::warp] = False          # lane 0 of a warp heads a run
+    n_live = live.sum()
+    return n_live, n_live - joined.sum()

@@ -70,7 +70,7 @@ def run_simulation(
     ``compile_video`` turns the frames into ``frames/output.mp4``.
 
     ``median_frame_s`` times the substeps of a frame alone, synchronized
-    (so substeps/s compares across modes); ``median_render_ms`` times the
+    (so it compares across modes); ``median_render_ms`` times the
     render, PNG and PLY of a frame, synchronized.  The JAX driver's frame
     times also include the render fetch it overlaps with the substeps.
 
@@ -241,8 +241,6 @@ def run_simulation(
         "frames": frame_num,
         "substeps_per_frame": steps_per_frame,
         "median_frame_s": float(np.median(frame_times)) if frame_times else None,
-        "substeps_per_sec": (steps_per_frame / float(np.median(frame_times))
-                             if frame_times else None),
         "median_render_ms": float(np.median(render_times)) * 1e3 if render_times else None,
         "frame_s": frame_times,
         "fused_frames": fused_frames,

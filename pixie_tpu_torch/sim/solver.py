@@ -30,6 +30,7 @@ from pixie_tpu_torch.sim.svd3 import matmul_nt, svd3
 from pixie_tpu_torch.sim.types import (
     MPMConfig, MPMState, finalize_mu_lam, get_material_id, make_state,
 )
+from pixie_tpu_torch.utils import observability as obs
 
 
 def grid_momentum_to_velocity(grid, cfg: MPMConfig, dt) -> torch.Tensor:
@@ -95,19 +96,27 @@ def _substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, node_x, resort: boo
     between P2G and G2P where P2G returns one (on the card).  Returns the
     state and that order (None if the state kept its order).
     ``grid_stage(grid, time) -> grid_v`` replaces ``grid_update`` (the
-    sharded frames of solver_dist.py sum the ranks' grids first)."""
-    for b in bcs:
-        if isinstance(b, bc_mod.PARTICLE_BC_TYPES):
-            state = b.apply(time, dt, state)
-    state = compute_stress_from_F_trial(state, cfg, dt)
-    grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
-                               state.vol, state.selection == 0, cfg, dt, return_order=True)
-    grid_v = (grid_update(grid, cfg, dt, time, bcs, node_x) if grid_stage is None
-              else grid_stage(grid, time))
+    sharded frames of solver_dist.py sum the ranks' grids first).  Each
+    stage is a span of ``utils.observability``."""
+    with obs.span("sim.particle_bc"):
+        for b in bcs:
+            if isinstance(b, bc_mod.PARTICLE_BC_TYPES):
+                state = b.apply(time, dt, state)
+    with obs.span("sim.constitutive"):
+        state = compute_stress_from_F_trial(state, cfg, dt)
+    with obs.span("sim.p2g"):
+        grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
+                                   state.vol, state.selection == 0, cfg, dt, return_order=True)
+    with obs.span("sim.grid"):
+        grid_v = (grid_update(grid, cfg, dt, time, bcs, node_x) if grid_stage is None
+                  else grid_stage(grid, time))
     order = order if resort else None
     if order is not None:
-        state = permute_state(state, order)
-    return g2p(state, grid_v, cfg, dt), order
+        with obs.span("sim.resort"):
+            state = permute_state(state, order)
+    with obs.span("sim.g2p"):
+        state = g2p(state, grid_v, cfg, dt)
+    return state, order
 
 
 # substeps between two cell sorts of a frame's particles: their runs of
@@ -116,6 +125,10 @@ def _substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, node_x, resort: boo
 # length of a kept order fell from 5.13 at substep 1 to 4.40 at 100 and
 # 2.24 at 399; PERF.md)
 RESORT_EVERY = 100
+# fused substeps between two samples of the splat's run length while a
+# tracer is on; RESORT_EVERY is a multiple of it, so the first substep after
+# each re-sort is sampled
+RUN_LENGTH_EVERY = 10
 
 
 def permute_state(state: MPMState, idx: torch.Tensor) -> MPMState:
@@ -162,15 +175,17 @@ def run_frame(state: MPMState, bcs, time0, dt, n_substeps: int, substep) -> MPMS
     """The frame loop of ``simulate_substeps``: ``substep(state, bcs, t,
     resort) -> (state, order)`` at t = f32(time0) + f32(step) * f32(dt),
     with ``resort`` at substep 0 and every RESORT_EVERY; the particle BCs'
-    masks follow each order, and the state returns in the caller's order."""
+    masks follow each order, and the state returns in the caller's order.
+    The frame is the span ``sim.frame``."""
     frame = None     # the state's particle i is the caller's particle frame[i]
-    for step in range(n_substeps):
-        t = np.float32(time0 + np.float32(step) * dt)
-        state, order = substep(state, bcs, t, step % RESORT_EVERY == 0)
-        if order is not None:
-            bcs = _permute_bcs(bcs, order)
-            frame = order if frame is None else frame[order]
-    return state if frame is None else _caller_order(state, frame)
+    with obs.span("sim.frame"):
+        for step in range(n_substeps):
+            t = np.float32(time0 + np.float32(step) * dt)
+            state, order = substep(state, bcs, t, step % RESORT_EVERY == 0)
+            if order is not None:
+                bcs = _permute_bcs(bcs, order)
+                frame = order if frame is None else frame[order]
+        return state if frame is None else _caller_order(state, frame)
 
 
 def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
@@ -186,28 +201,48 @@ def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     P2G's order, renewed every RESORT_EVERY substeps), so the fused kernel's
     splat sums long runs of same-cell lanes; the returned state is back in
     the caller's order.  On the CPU the state keeps its order and is written
-    in place."""
+    in place.
+
+    The frame is the span ``sim.frame``, its stages spans inside it.  While
+    a tracer is on, the splat's run length (``fs.run_counts``) is counted
+    before every RUN_LENGTH_EVERY-th B6 launch, in a span of its own."""
     assert not any(isinstance(b, bc_mod.PARTICLE_BC_TYPES) for b in bcs), \
         "the fused frame takes no particle BCs (use simulate_substeps)"
     time0, dt = np.float32(time0), np.float32(dt)
-    node_x = node_positions(cfg, state.device) if any(
-        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
-    state = compute_stress_from_F_trial(state, cfg, dt)
-    active = state.selection == 0
-    grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
-                               state.vol, active, cfg, dt, return_order=True)
-    if order is not None:
-        state, active = permute_state(state, order), active[order]
-    for step in range(n_substeps - 1):
-        t = np.float32(time0 + np.float32(step) * dt)
-        grid_v = grid_update(grid, cfg, dt, t, bcs, node_x)
-        if order is not None and step and step % RESORT_EVERY == 0:
-            again = transfer.cell_order(state.x, active, cfg)
-            state, active, order = permute_state(state, again), active[again], order[again]
-        grid = fs.fused_substep(state, grid_v, cfg, dt, active)
-    t = np.float32(time0 + np.float32(n_substeps - 1) * dt)
-    state = g2p(state, grid_update(grid, cfg, dt, t, bcs, node_x), cfg, dt)
-    return state if order is None else _caller_order(state, order)
+    with obs.span("sim.frame"):
+        node_x = node_positions(cfg, state.device) if any(
+            isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+        with obs.span("sim.constitutive"):
+            state = compute_stress_from_F_trial(state, cfg, dt)
+        active = state.selection == 0
+        with obs.span("sim.p2g"):
+            grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
+                                       state.vol, active, cfg, dt, return_order=True)
+        if order is not None:
+            with obs.span("sim.resort"):
+                state, active = permute_state(state, order), active[order]
+        for step in range(n_substeps - 1):
+            t = np.float32(time0 + np.float32(step) * dt)
+            with obs.span("sim.grid"):
+                grid_v = grid_update(grid, cfg, dt, t, bcs, node_x)
+            if order is not None and step and step % RESORT_EVERY == 0:
+                with obs.span("sim.resort"):
+                    again = transfer.cell_order(state.x, active, cfg)
+                    state, active, order = (permute_state(state, again), active[again],
+                                            order[again])
+            if step % RUN_LENGTH_EVERY == 0 and obs.enabled():
+                with obs.span("sim.run_length"):
+                    live, runs = fs.run_counts(state.x, active, cfg)
+                    obs.count("fused.live_lanes", live)
+                    obs.count("fused.runs", runs)
+            with obs.span("sim.fused"):
+                grid = fs.fused_substep(state, grid_v, cfg, dt, active)
+        t = np.float32(time0 + np.float32(n_substeps - 1) * dt)
+        with obs.span("sim.grid"):
+            grid_v = grid_update(grid, cfg, dt, t, bcs, node_x)
+        with obs.span("sim.g2p"):
+            state = g2p(state, grid_v, cfg, dt)
+        return state if order is None else _caller_order(state, order)
 
 
 def _unpack_cov(c):

@@ -32,6 +32,7 @@ import torch
 
 from pixie_tpu_torch.models.unet3d import RegressionUNet, SegmentationUNet
 from pixie_tpu_torch.train.data import MaterialVoxelDataset
+from pixie_tpu_torch.utils import observability as obs
 from pixie_tpu_torch.utils.metrics import mean_se_ci90
 
 
@@ -78,29 +79,34 @@ class CombinedInference:
             model.to(self.device).eval()
 
     @torch.inference_mode()
-    def _fwd(self, feat: torch.Tensor):
-        return self.seg_model(feat), self.cont_model(feat)
+    def _fwd(self, feat):
+        """Both nets on ``feat`` (B,D,H,W,C), an array or a tensor of any
+        float dtype, moved to the device in float32: the span
+        ``unet.forward``."""
+        with obs.span("unet.forward"):
+            x = torch.as_tensor(feat, device=self.device).to(torch.float32)
+            return self.seg_model(x), self.cont_model(x)
 
     def predict(self, feat: np.ndarray):
         """feat (B,D,H,W,C) -> (seg_logits (B,D,H,W,K), cont (B,D,H,W,3)), numpy."""
-        x = torch.as_tensor(np.asarray(feat, np.float32), device=self.device)
-        seg, cont = self._fwd(x)
+        seg, cont = self._fwd(np.asarray(feat, np.float32))
         return _as_numpy(seg), _as_numpy(cont)
 
     def predict_device(self, feat_dev: torch.Tensor):
         """Single grid already on the device: (D,H,W,C) tensor of any float
         dtype -> (seg_logits (D,H,W,K), cont (D,H,W,3)) tensors on the device."""
-        x = torch.as_tensor(feat_dev, device=self.device).to(torch.float32)[None]
-        seg, cont = self._fwd(x)
+        seg, cont = self._fwd(torch.as_tensor(feat_dev)[None])
         return seg[0], cont[0]
 
     def combined_prediction(self, seg_logits, cont_pred) -> np.ndarray:
         """(3+K, D, H, W): continuous channels + one-hot argmax classes
-        (save_predictions, inference_combined.py:189-199)."""
-        seg_pred = np.argmax(_as_numpy(seg_logits), axis=-1)
-        cont = np.moveaxis(_as_numpy(cont_pred), -1, 0)
-        onehot = np.moveaxis(np.eye(self.num_classes, dtype=np.float32)[seg_pred], -1, 0)
-        return np.concatenate([cont, onehot], axis=0)
+        (save_predictions, inference_combined.py:189-199); the fetch from the
+        device included, the span ``material.post``."""
+        with obs.span("material.post"):
+            seg_pred = np.argmax(_as_numpy(seg_logits), axis=-1)
+            cont = np.moveaxis(_as_numpy(cont_pred), -1, 0)
+            onehot = np.moveaxis(np.eye(self.num_classes, dtype=np.float32)[seg_pred], -1, 0)
+            return np.concatenate([cont, onehot], axis=0)
 
 
 def run_inference(

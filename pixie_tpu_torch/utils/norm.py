@@ -11,7 +11,8 @@ Implements the exact normalization contract of the reference:
 Ranges are loaded from ``normalization_ranges.yaml``
 (reference: pixie/training_utils.py:21-47, normalization_stats/normalization_ranges.yaml).
 
-Carried over unchanged from pixie_tpu/utils/norm.py (host numpy).
+Carried over from pixie_tpu/utils/norm.py (host numpy); ``unscale_prediction``
+is the span ``material.unscale`` of ``utils.observability``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import json
 from pathlib import Path
 
 import numpy as np
+
+from pixie_tpu_torch.utils import observability as obs
 
 # Number of continuous channels: density, E, nu
 CONT_CH = 3
@@ -119,14 +122,16 @@ def unscale_prediction(pred: np.ndarray, ranges: NormalizationRanges) -> np.ndar
     is preserved and only the first 3 channels are converted
     (map_pred_to_coords.py:41-75).
     """
-    cont = np.clip(pred[:CONT_CH], -1.0, 1.0)
-    out = pred.copy().astype(np.float32)
+    with obs.span("material.unscale"):
+        cont = np.clip(pred[:CONT_CH], -1.0, 1.0)
+        out = pred.copy().astype(np.float32)
 
-    dens_log = (cont[0] + 1.0) * (ranges.density_max - ranges.density_min) / 2.0 + ranges.density_min
-    out[0] = 10.0 ** dens_log
+        dens_log = ((cont[0] + 1.0) * (ranges.density_max - ranges.density_min) / 2.0
+                    + ranges.density_min)
+        out[0] = 10.0 ** dens_log
 
-    e_log = (cont[1] + 1.0) * (ranges.E_max - ranges.E_min) / 2.0 + ranges.E_min
-    out[1] = 10.0 ** e_log
+        e_log = (cont[1] + 1.0) * (ranges.E_max - ranges.E_min) / 2.0 + ranges.E_min
+        out[1] = 10.0 ** e_log
 
-    out[2] = (cont[2] + 1.0) * (ranges.nu_max - ranges.nu_min) / 2.0 + ranges.nu_min
-    return out
+        out[2] = (cont[2] + 1.0) * (ranges.nu_max - ranges.nu_min) / 2.0 + ranges.nu_min
+        return out

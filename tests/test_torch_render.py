@@ -648,7 +648,10 @@ def test_gs_path_plys_match_jax(gs_runs):
 
 def test_gs_path_info_and_bcs_match_jax(gs_runs):
     root, jinfo, tinfo = gs_runs
-    assert set(jinfo) <= set(tinfo)
+    # the port drops JAX's substeps_per_sec (substeps over the median frame, not
+    # the run's rate); median_frame_s, which both report, stands for it
+    assert set(jinfo) - {"substeps_per_sec"} <= set(tinfo)
+    assert "substeps_per_sec" not in tinfo and tinfo["median_frame_s"] > 0
     for k in ("n_particles", "frames", "substeps_per_frame", "active_materials", "auto_bcs"):
         assert tinfo[k] == jinfo[k], k
     assert tinfo["median_render_ms"] is not None and tinfo["final_state_finite"]
