@@ -8,8 +8,8 @@ at full width.
 Phases (any failure exits non-zero):
   1. device   — a CUDA device is required; prints nvidia-smi's name/power limit
   2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream,
-                fused_substep,probe_ablation,gather}.cu for sm_90a, one nvcc
-                per source, started together
+                fused_substep,constitutive,probe_ablation,gather}.cu for
+                sm_90a, one nvcc per source, started together
   3. kernels  — P2G (B1: bin keys, torch.sort, binned splat) vs its plain
                 version in three cases (the slice's state: 100k particles,
                 n_grid 50; the same sorted by cell; P1's 100k particles at
@@ -26,7 +26,13 @@ Phases (any failure exits non-zero):
                 (as given, sorted by cell, sorted then drifted by 100 fused
                 substeps), each with its mean run length and timed without
                 its splat; the mean run length of a kept cell order at
-                substeps 1, 100 and 399 of a fused frame; a torch.profiler
+                substeps 1, 100 and 399 of a fused frame; the constitutive
+                pass (B7) vs its plain version on that mixed state (every
+                return-map branch) and on config 5 at 500k particles with a
+                strained F, by B6's criterion on F, stress, mu, lam and the
+                yield stress, the input state untouched, both layouts of its
+                row accesses timed in turns beside the plain pass and the
+                bound, and the ptxas reports of B7 and B6; a torch.profiler
                 count of launches, wall and device time a substep, unfused
                 (the frame's state in a cell order and in the caller's, in
                 turns) and fused; the tile blend (B3, tile_cap 512)
@@ -215,7 +221,8 @@ TRAIN_CFG = dict(densify_from=100, densify_interval=100, densify_until=300,
 PROBE_P2G = ("probe_p2g_full", "probe_p2g_noweights", "probe_p2g_noatomics",
              "probe_p2g_minimal")
 GATHERS = ("gather_axis0", "gather_axis1")
-KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward", "fused_substep") + PROBE_P2G + GATHERS
+KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward", "fused_substep",
+           "constitutive") + PROBE_P2G + GATHERS
 # stated tolerances of phase 3, relative to the largest |value| of the plain
 # result: P2G sums ~170 float atomics per node in run-dependent order; G2P
 # sums 27 terms in a fixed order but contracts multiply-adds (FMA) where the
@@ -348,22 +355,26 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def _reset_counts() -> None:
-    from pixie_tpu_torch.ops import fused_substep, gather, gs_stream, probe_ablation, transfer
+    from pixie_tpu_torch.ops import (constitutive, fused_substep, gather, gs_stream,
+                                     probe_ablation, transfer)
 
     transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = 0
     gs_stream.BLEND_LAUNCHES = gs_stream.BLEND_BWD_LAUNCHES = 0
     fused_substep.FUSED_LAUNCHES = 0
+    constitutive.CONSTITUTIVE_LAUNCHES = 0
     probe_ablation.LAUNCHES.update(dict.fromkeys(probe_ablation.MODES, 0))
     gather.LAUNCHES.update({0: 0, 1: 0})
 
 
 def _read_counts() -> dict:
-    from pixie_tpu_torch.ops import fused_substep, gather, gs_stream, probe_ablation, transfer
+    from pixie_tpu_torch.ops import (constitutive, fused_substep, gather, gs_stream,
+                                     probe_ablation, transfer)
 
     return {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
             "gs_blend": gs_stream.BLEND_LAUNCHES,
             "gs_blend_backward": gs_stream.BLEND_BWD_LAUNCHES,
             "fused_substep": fused_substep.FUSED_LAUNCHES,
+            "constitutive": constitutive.CONSTITUTIVE_LAUNCHES,
             **{f"probe_p2g_{m}": probe_ablation.LAUNCHES[m] for m in probe_ablation.MODES},
             **{f"gather_axis{a}": gather.LAUNCHES[a] for a in (0, 1)}}
 
@@ -388,8 +399,8 @@ def phase_device():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
-    for src in ("transfer.cu", "gs_stream.cu", "fused_substep.cu", "probe_ablation.cu",
-                "gather.cu", "mpm.cuh"):
+    for src in ("transfer.cu", "gs_stream.cu", "fused_substep.cu", "constitutive.cu",
+                "probe_ablation.cu", "gather.cu", "mpm.cuh"):
         if not (HERE / "pixie_tpu_torch" / "csrc" / src).exists():
             fail(f"pixie_tpu_torch sources not found beside {Path(__file__).name}")
     print(f"nvidia-smi: {_smi()}", flush=True)
@@ -404,16 +415,16 @@ def phase_device():
             print(f"module {mod}: absent")
 
 
-LIBRARIES = ("transfer", "gs_stream", "fused_substep", "probe_ablation", "gather")
+LIBRARIES = ("transfer", "gs_stream", "fused_substep", "constitutive", "probe_ablation", "gather")
 
 
 def phase_build():
-    from pixie_tpu_torch.ops import (build, fused_substep, gather, gs_stream, probe_ablation,
-                                     transfer)
+    from pixie_tpu_torch.ops import (build, constitutive, fused_substep, gather, gs_stream,
+                                     probe_ablation, transfer)
 
     t0 = time.time()
     build.load_libraries(*LIBRARIES)  # one nvcc per source, all at once
-    for mod in (transfer, gs_stream, fused_substep, probe_ablation, gather):
+    for mod in (transfer, gs_stream, fused_substep, constitutive, probe_ablation, gather):
         mod.build()
     print(f"build: {', '.join(n + '.cu' for n in LIBRARIES)} in {time.time() - t0:.2f} s",
           flush=True)
@@ -730,28 +741,38 @@ def _check_fused(out_k, grid_k, out_p, grid_p, mu_in, label: str,
         if not e <= tol:
             fail(f"fused_substep kernel disagrees with its plain version on {k} ({label})")
         err = max(err, e)
+    _check_stress_fields("fused_substep", out_k, out_p, mu_in, label, every_branch, 9e6)
+    if not all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in fs.UPDATED_FIELDS):
+        fail(f"non-finite fused_substep output ({label})")
+    return err
+
+
+def _check_stress_fields(kernel: str, out_k, out_p, mu_in, label: str, every_branch: bool,
+                         stress_scale: float) -> None:
+    """F, stress, mu, lam and the yield stress of a kernel's constitutive
+    pass (B6's phase 3, or B7) against the plain version's by the ULP
+    criterion above, ``stress_scale`` being the state's largest E; the
+    return-map branches the two took (with ``every_branch`` the plain
+    version must take every one)."""
     for k in ("F", "stress", "mu", "lam", "yield_stress"):
         got, ref = getattr(out_k, k), getattr(out_p, k)
-        scale = 9e6 if k == "stress" else float(ref.abs().max())
+        scale = stress_scale if k == "stress" else float(ref.abs().max())
         floor = ULP_FLOOR * scale
         diff = (got - ref).abs()
         share, worst = float((diff <= floor).float().mean()), float(diff.max())
-        print(f"fused_substep ({label}) {k}: {share:.5f} of entries within the ULP floor "
+        print(f"{kernel} ({label}) {k}: {share:.5f} of entries within the ULP floor "
               f"{floor:.3e}, max_abs_err {worst:.3e} (tol: share >= {ULP_SHARE}, max <= "
               f"{ULP_MAX * floor:.3e})")
         if not (share >= ULP_SHARE and worst <= ULP_MAX * floor):
-            fail(f"fused_substep kernel disagrees with its plain version on {k} ({label})")
+            fail(f"{kernel} kernel disagrees with its plain version on {k} ({label})")
     bk, bp = _branches(out_k, mu_in), _branches(out_p, mu_in)
     counts = {c: int((bp == c).sum()) for c in (1, 3, 5)}
-    print(f"fused_substep ({label}): return-map branch differs for "
+    print(f"{kernel} ({label}): return-map branch differs for "
           f"{float((bk != bp).float().mean()):.3e} of particles ({int((bk != bp).sum())}); plain "
           f"version's branches: yielded {counts[1]}, sand expanded {counts[3]}, snow damaged "
           f"{counts[5]}")
     if every_branch and not all(counts.values()):
-        fail("the fused state did not take every return-map branch")
-    if not all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in fs.UPDATED_FIELDS):
-        fail(f"non-finite fused_substep output ({label})")
-    return err
+        fail(f"the {label} state did not take every return-map branch")
 
 
 RUN_SUBSTEPS = (1, 100, 399)   # substeps of a fused frame at which runs are read
@@ -867,6 +888,121 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
             "run_length": {str(k): v[0] for k, v in runs.items()}}
 
 
+# fused_substep_kernel's ptxas report before its phase 3 became mpm.cuh's
+# constitutive_update, shared with B7: fused_substep.cu as it was then, built
+# with ops/build.py's NVCC_FLAGS for an NVIDIA H100 80GB HBM3 (PERF.md)
+B6_PTXAS_BEFORE = ("kRunSums 96 registers, 0 bytes spill stores, 0 bytes spill loads; "
+                   "kNoSplat 72 registers, no spill")
+B7_N = 500_000   # config 5's particles, as the benchmark's scene cells run it
+
+
+def _config5_strained(dev, n: int = B7_N):
+    """Config 5's state at ``n`` particles (its materials in their blocks:
+    sand, snow, plasticine) with F = F_trial = I + 0.01 noise, under the
+    benchmark's scene constants (scene_500k.json): sand expands and
+    compacts, plasticine yields; snow, at yield stress 0, stays elastic."""
+    import torch
+
+    from pixie_tpu_torch.sim.types import MPMConfig
+
+    st, _ = _config5_state(dev, n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    f = torch.eye(3, device=dev) + 0.01 * torch.randn((n, 3, 3), generator=gen, device=dev)
+    cfg = MPMConfig(**MULTI_CFG, friction_angle=25.0, softening=0.1)
+    return st.replace(F=f, F_trial=f.clone()), cfg
+
+
+def _constitutive_bound(st, cfg) -> dict:
+    """B7's least time on ``st``: an active particle reads F_trial, mu, lam,
+    the yield stress, its material and selection (and bulk for water) and
+    writes F, stress, mu, lam and the yield stress; an inactive one reads
+    F, stress, mu, lam, the yield stress and selection and writes the same;
+    the operations of phase_fused's constitutive part (two svd3s, a return
+    map and a stress for ids 1, 2, 3 and 5)."""
+    active = st.selection == 0
+    mat = st.material[active]
+    n_act, n_in = int(active.sum()), int((~active).sum())
+    counts = {m: int((mat == m).sum()) for m in range(8)}
+    n_bytes = n_act * (36 + 12 + 8 + 84) + 4 * counts[6] + n_in * (72 + 12 + 4 + 84)
+    n_ops = sum(c * (STRESS_OPS.get(m, 18) + SVD3_OPS * (m in (0, 1, 2, 3, 5))
+                     + (SVD3_OPS + RETURN_MAP_OPS) * (m in (1, 2, 3, 5)))
+                for m, c in counts.items())
+    return {**bound(n_bytes, n_ops), "MB": n_bytes / 1e6, "Mflop": n_ops / 1e6}
+
+
+def phase_constitutive(dev) -> dict:
+    """B7 (ops/constitutive.py, csrc/constitutive.cu) against the plain pass
+    compute_stress_from_F_trial by the five-field criterion of
+    _check_fused: on the slice's 100k mixed state (_fused_state: ids 0, 1,
+    2, 3, 5, 6 interleaved, every return-map branch) and on config 5 at
+    500k particles with a strained F_trial (_config5_strained); the input
+    state untouched; both layouts of the 36-byte rows (one thread a row,
+    staged through shared memory) timed in turns on each state, device time
+    behind a sleep kernel (scripts/timing.py), against the plain pass and
+    the bound; the ptxas reports of B7 and of B6, whose phase 3 it shares."""
+    import torch
+
+    from pixie_tpu_torch.ops import constitutive as ops_const
+    from pixie_tpu_torch.scripts.timing import time_calls
+    from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
+
+    fields = ("F_trial", "F", "stress", "mu", "lam", "yield_stress", "material", "selection")
+    cases, err = {}, 0.0
+    for label, (st, cfg) in (("mixed 100k", _fused_state(dev)[:2]),
+                             ("config 5 500k", _config5_strained(dev))):
+        before = {k: getattr(st, k).clone() for k in fields}
+        out_p = compute_stress_from_F_trial(st, cfg, DT)
+        launches = ops_const.CONSTITUTIVE_LAUNCHES
+        out_k = ops_const.constitutive_pass(st, cfg, DT)
+        torch.cuda.synchronize()
+        if ops_const.CONSTITUTIVE_LAUNCHES != launches + 1:
+            fail("constitutive_pass on CUDA tensors did not launch B7 once")
+        e_max = float(st.E.max())
+        _check_stress_fields("constitutive", out_k, out_p, st.mu, label,
+                             label.startswith("mixed"), e_max)
+        err = max(err, float((out_k.F - out_p.F).abs().max()))
+        for layout in ops_const.LAYOUTS:
+            other = ops_const.constitutive_variant(layout, st, cfg, DT)
+            same = all(torch.equal(getattr(other, k), getattr(out_k, k))
+                       for k in ("F", "stress", "mu", "lam", "yield_stress"))
+            print(f"constitutive ({label}): layout {layout} bitwise equal to the shipped "
+                  f"{ops_const.SHIPPED}: {same}", flush=True)
+            if not same:
+                _check_stress_fields("constitutive", other, out_p, st.mu, f"{label}, {layout}",
+                                     False, e_max)
+        if not all(torch.equal(getattr(st, k), t) for k, t in before.items()):
+            fail(f"constitutive_pass wrote its input state ({label})")
+        row = {}
+        for layout in ("rows", "staged", "rows", "staged"):
+            ms = statistics.median(time_calls(
+                lambda lay=layout: ops_const.constitutive_variant(lay, st, cfg, DT), [()] * 30,
+                dev))
+            row.setdefault(layout, []).append(ms)
+        row = {k: min(v) for k, v in row.items()}
+        row["around_call_ms"] = cuda_ms(lambda: ops_const.constitutive_pass(st, cfg, DT))
+        row["plain_ms"] = cuda_ms(lambda: compute_stress_from_F_trial(st, cfg, DT), reps=5,
+                                  warmup=1)
+        row.update(_constitutive_bound(st, cfg))
+        cases[label] = row
+        print(f"constitutive ({label}, {st.n_particles} particles): device ms (the better of two "
+              f"turns, each the median of 30 behind a sleep kernel): rows {row['rows']:.4f}, "
+              f"staged {row['staged']:.4f}; around the call {row['around_call_ms']:.4f} ms; plain "
+              f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['MB']:.2f} MB, {row['Mflop']:.1f} Mflop)", flush=True)
+        del st, out_p, out_k, before
+        torch.cuda.empty_cache()
+    for line in _ptxas("constitutive"):
+        print(f"constitutive ptxas: {line}")
+    print(f"fused_substep_kernel ptxas before the shared constitutive_update: {B6_PTXAS_BEFORE}")
+    for line in _ptxas("fused_substep"):
+        print(f"fused_substep ptxas now: {line}")
+    main_case = cases["config 5 500k"]
+    return {"max_abs_err": err, "ms": main_case[ops_const.SHIPPED],
+            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": None, "cases": cases}
+
+
 @contextlib.contextmanager
 def _unfused_frame_order(how: str):
     """The unfused frame's particle order: "cell", as shipped (the state
@@ -890,8 +1026,7 @@ def phase_profile(dev, n: int = N_PARTICLES, n_grid: int = N_GRID,
     kernel launches, device kernels, device time and wall time a substep, as
     the difference between a frame of substeps[path] substeps (20 unfused,
     a whole frame of 400 fused) and a frame of 1, so the fused frame's
-    prologue and epilogue (the plain constitutive pass, once a frame) are
-    reported apart.  Wall times are the best of 3 synchronized runs, taken
+    prologue and epilogue (B7, once a frame) are reported apart.  Wall times are the best of 3 synchronized runs, taken
     before the profiler sessions of their turn; a frame of 1 substep varies
     by several ms on the host's clock, which the long frames dilute.  The
     unfused substep runs four turns: with the frame's state in a cell order
@@ -1507,7 +1642,7 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
               f"substeps, materials {info['active_materials']}, "
               f"median frame {info['median_frame_s']:.3f} s; launches {pc_launches}",
               flush=True)
-        if pc_launches != _counts(p2g=substeps, g2p=substeps):
+        if pc_launches != _counts(p2g=substeps, g2p=substeps, constitutive=substeps):
             fail(f"point-cloud launches {pc_launches} != substeps run {substeps}")
         frames = sorted((sim_out / "ply_files").glob("frame_*.ply"))
         if len(frames) != 1:
@@ -1533,7 +1668,8 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
               f"{info['substeps_per_frame']} substeps, materials {info['active_materials']}, "
               f"median frame {info['median_frame_s']:.3f} s, median render {info['median_render_ms']:.1f} ms "
               f"(render + PNG + PLY); launches {launches}", flush=True)
-        if launches != _counts(p2g=substeps, g2p=substeps, gs_blend=n_frames):
+        if launches != _counts(p2g=substeps, g2p=substeps, constitutive=substeps,
+                               gs_blend=n_frames):
             fail(f"GS launches {launches} != {substeps} substeps, {n_frames} frames")
         _check_gs_run(gs_out, info, n_frames, res)
 
@@ -1649,7 +1785,7 @@ def _filling_rollout(dev, root: Path, ply: Path, gs_dir: Path, res: int) -> dict
         fail("particle filling added no particle")
     if not info["final_state_finite"]:
         fail("non-finite positions after the filled rollout")
-    if s != FILL_SUBSTEPS or launches != _counts(p2g=s, g2p=s, gs_blend=1):
+    if s != FILL_SUBSTEPS or launches != _counts(p2g=s, g2p=s, constitutive=s, gs_blend=1):
         fail(f"filling rollout launches {launches} != {FILL_SUBSTEPS} substeps and 1 render")
     _check_gs_run(out, {**info, "n_particles": info["n_particles"] - info["n_filled"],
                         "final_state_finite": info["final_state_finite"]}, 1, res)
@@ -1691,12 +1827,13 @@ def _check_gs_run(gs_out: Path, info: dict, n_frames: int, res: int) -> None:
 def _check_fused_launches(mode: str, info: dict, launches: dict, n_frames: int,
                           gs_blend: int = 0) -> None:
     """Frame 0 holds the tree config's impulse and runs unfused (S P2G, S
-    G2P); every later frame runs fused (1 P2G, S - 1 fused substeps, 1 G2P)."""
+    B7, S G2P); every later frame runs fused (1 B7, 1 P2G, S - 1 fused
+    substeps, 1 G2P)."""
     s = info["substeps_per_frame"]
     fused = info["fused_frames"]
     frame_s = info["frame_s"]
     want = _counts(p2g=s + (n_frames - 1), g2p=s + (n_frames - 1), gs_blend=gs_blend,
-                   fused_substep=(n_frames - 1) * (s - 1))
+                   fused_substep=(n_frames - 1) * (s - 1), constitutive=s + (n_frames - 1))
     print(f"mpm ({mode}, fused): {info['n_particles']} particles, {n_frames} frames x {s} "
           f"substeps, fused frames {fused}; frame 0 (unfused, impulse) {s / frame_s[0]:.2f} "
           f"substeps/s, fused frames {s / statistics.median(frame_s[1:]):.2f} substeps/s "
@@ -1866,7 +2003,7 @@ def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = 
         print(f"voxelize: nvidia-smi {_smi()}", flush=True)
         if not mask_range[0] <= int(mask.sum()) <= mask_range[1]:
             fail(f"the voxelizer's mask holds {int(mask.sum())} voxels, outside {mask_range}")
-        if launches != _counts(p2g=s, g2p=s):
+        if launches != _counts(p2g=s, g2p=s, constitutive=s):
             fail(f"voxelize path launches {launches} != substeps run {s}")
         verts = read_ply(ply)["vertex"]
         if len(verts) != int(mask.sum()) or not info["final_state_finite"]:
@@ -2750,7 +2887,7 @@ def phase_vlm(dev, capture: Path, gs_dir: Path, field_dir: Path, d: int = 64,
         print(f"vlm: mpm (point cloud) of segmented_semantics.ply: {info['n_particles']} "
               f"particles, 1 frame x {s} substeps, median frame {info['median_frame_s']:.3f} s; "
               f"launches {launches}", flush=True)
-        if launches != _counts(p2g=s, g2p=s) or not info["final_state_finite"] or \
+        if launches != _counts(p2g=s, g2p=s, constitutive=s) or not info["final_state_finite"] or \
                 info["n_particles"] != int(mask.sum()):
             fail(f"vlm path launches {launches} != substeps run {s}, or the rollout of "
                  f"{info['n_particles']} particles went non-finite")
@@ -3357,6 +3494,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(dev)
     kern["fused_substep"] = phase_fused(dev)
+    kern["constitutive"] = phase_constitutive(dev)
     phase_profile(dev)
     kern["gs_blend"] = phase_blend(dev)
     kern["gs_blend_backward"] = phase_blend_backward(dev)
@@ -3391,6 +3529,7 @@ def main() -> int:
             ("gs_blend", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:210"),
             ("gs_blend_backward", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:252"),
             ("fused_substep", "fused_substep.cu", "pixie_tpu/ops/fused_substep.py:266"),
+            ("constitutive", "constitutive.cu", "none (XLA fused the JAX pass)"),
             *((name, "probe_ablation.cu", "scripts/probe_kernel_ablation.py:112")
               for name in PROBE_P2G),
             *((name, "gather.cu", "scripts/probe_vmem_gather.py:48") for name in GATHERS)):

@@ -29,9 +29,10 @@
 // Design: one thread per particle, one straight-line program: the gather
 // is g2p_kernel's (transfer.cu), the splat B1's run sums (mpm.cuh
 // splat_nodes + RunSink), and between them the constitutive math of mpm.cuh
-// runs in registers: the particle state is read once and written once per
-// substep, where the two-kernel path round-trips it through device memory
-// between ~2000 small PyTorch launches of the constitutive pass.
+// (constitutive_update, which B7 of constitutive.cu runs on its own) runs in
+// registers: the particle state is read once and written once per
+// substep, where the unfused substep round-trips it through device memory
+// between G2P, the constitutive pass (B7) and P2G.
 //
 // Lane q takes particle q.  The fused frame (sim/solver.py) hands the
 // kernel its particles sorted by cell: it permutes the state's arrays into
@@ -93,13 +94,11 @@ enum Schedule : int { kRunSums = 0, kNoSplat = 1 };
 
 struct Params {
   int n, n_grid;
-  float dx, inv_dx, dt;
-  float hardening, xi, alpha, plastic_viscosity, softening, rpic_damping;
+  float dx, inv_dx;
+  pixie::Plasticity pl;  // dt, the plasticity scalars, the materials' bitmask
+  float rpic_damping;
   int update_cov;
-  int active_materials;  // bit m set: material id m is in cfg.active_materials
 };
-
-__device__ __forceinline__ bool has(int mask, int id) { return (mask >> id) & 1; }
 
 template <int kSched>
 __global__ void __launch_bounds__(kThreads)
@@ -121,7 +120,7 @@ fused_substep_kernel(float* __restrict__ x, float* __restrict__ v, float* __rest
     if (!live) return;
   }
   const int n_grid = prm.n_grid;
-  const float dt = prm.dt, inv_dx = prm.inv_dx, dx = prm.dx;
+  const float dt = prm.pl.dt, inv_dx = prm.inv_dx, dx = prm.dx;
   // what the splat reads: x(s+1), v, the damped C, the mass and -vol dt stress
   float xp[3] = {0.f, 0.f, 0.f}, nv[3] = {0.f, 0.f, 0.f}, c[9], sc[9], m = 0.f;
 #pragma unroll
@@ -228,55 +227,16 @@ fused_substep_kernel(float* __restrict__ x, float* __restrict__ v, float* __rest
 
     // ---- 3. stress(s+1): return map, then the Kirchhoff stress -----------
     const int mat = material[p];
-    const int mask = prm.active_materials;
     float mu = mu_arr[p], lam = lam_arr[p], ys = ys_arr[p];
-    float fn[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) fn[k] = ft[k];
-    if ((mat == 1 || mat == 2 || mat == 3 || mat == 5) && has(mask, mat)) {
-      float u[9], sig[3], vv[9];
-      pixie::svd3(ft, u, sig, vv);
-      if (mat == 1) {
-        pixie::von_mises(ft, u, sig, vv, mu, lam, ys, prm.hardening, prm.xi, fn);
-      } else if (mat == 2) {
-        pixie::sand(ft, u, sig, vv, mu, lam, prm.alpha, fn);
-      } else if (mat == 3) {
-        pixie::viscoplastic(ft, u, sig, vv, mu, ys, prm.plastic_viscosity, dt, fn);
-      } else {
-        pixie::snow(ft, u, sig, vv, mu, lam, ys, prm.hardening, prm.xi, prm.softening, fn);
-      }
-    }
-
-    float st[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) st[k] = 0.0f;
-    const bool fcr = (mat == 0 || mat == 5) && (has(mask, 0) || has(mask, 5) || has(mask, 6));
-    const bool stvk = (mat == 1 || mat == 3) && (has(mask, 1) || has(mask, 3));
-    const bool dp = mat == 2 && has(mask, 2);
-    const bool water = mat == 6 && has(mask, 6);
-    if (fcr || stvk || dp) {
-      float u[9], sig[3], vv[9];
-      pixie::svd3(fn, u, sig, vv);
-      if (fcr) {
-        pixie::stress_fcr(fn, u, vv, pixie::det3(fn), mu, lam, st);
-      } else if (stvk) {
-        pixie::stress_stvk(fn, u, sig, vv, mu, lam, st);
-      } else {
-        pixie::stress_drucker_prager(fn, u, sig, vv, mu, lam, st);
-      }
-    } else if (water) {
-      pixie::stress_water(pixie::det3(fn), bulk[p], st);
-    }
+    float fn[9], st[9];
+    pixie::constitutive_update(ft, mat, mu, lam, ys, bulk + p, prm.pl, fn, st);
     const float nvol = -vol[p];
 #pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int qq = 0; qq < 3; ++qq) {
-        const float sym = 0.5f * (st[3 * r + qq] + st[3 * qq + r]);
-        F[9 * p + 3 * r + qq] = fn[3 * r + qq];
-        stress[9 * p + 3 * r + qq] = sym;
-        sc[3 * r + qq] = nvol * sym * dt;  // -vol * stress * dt
-      }
+    for (int k = 0; k < 9; ++k) {
+      F[9 * p + k] = fn[k];
+      stress[9 * p + k] = st[k];
+      sc[k] = nvol * st[k] * dt;  // -vol * stress * dt
+    }
     mu_arr[p] = mu;
     lam_arr[p] = lam;
     ys_arr[p] = ys;
@@ -311,9 +271,9 @@ int pixie_fused_substep(int schedule, float* x, float* v, float* C, float* F, fl
                         float plastic_viscosity, float softening, float rpic_damping,
                         int update_cov, int active_materials, void* stream) {
   if (n > 0) {
-    const Params prm{n,         n_grid, dx,    inv_dx,           dt,
-                     hardening, xi,     alpha, plastic_viscosity, softening,
-                     rpic_damping, update_cov, active_materials};
+    const Params prm{n, n_grid, dx, inv_dx,
+                     {dt, hardening, xi, alpha, plastic_viscosity, softening, active_materials},
+                     rpic_damping, update_cov};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int blocks = (n + kThreads - 1) / kThreads;
 #define PIXIE_FUSED_LAUNCH(S)                                                                   \

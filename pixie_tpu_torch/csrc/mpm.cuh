@@ -1,8 +1,8 @@
 // Per-particle MLS-MPM device math shared by the transfer kernels
-// (transfer.cu), the fused substep (fused_substep.cu) and the P2G ablation
-// probe (probe_ablation.cu): the quadratic B-spline stencil, the P2G splat
-// of one particle and the run sums of a warp's same-cell lanes, Warp's 3x3
-// SVD and the constitutive models.
+// (transfer.cu), the fused substep (fused_substep.cu), the constitutive pass
+// (constitutive.cu) and the P2G ablation probe (probe_ablation.cu): the
+// quadratic B-spline stencil, the P2G splat of one particle and the run sums
+// of a warp's same-cell lanes, Warp's 3x3 SVD and the constitutive models.
 //
 // Every function is a term-for-term port of the package's PyTorch code, so
 // the kernels compute what the plain versions compute:
@@ -17,6 +17,8 @@
 //   return maps and  sim/constitutive.py (von Mises, snow with damage,
 //   stresses         viscoplastic StVK, Drucker-Prager sand; FCR, StVK,
 //                    Drucker-Prager and water Kirchhoff stresses)
+//   constitutive_    sim/constitutive.py:compute_stress_from_F_trial, one
+//   update           particle (B6's phase 3, and B7)
 // 3x3 matrices are row-major float[9], as the (N, 3, 3) tensors store them.
 // Every array index is a compile-time constant after unrolling, so the
 // matrices live in registers.
@@ -703,6 +705,75 @@ __device__ __forceinline__ void stress_water(float J, float bulk, float* out) {
   const float pressure = -bulk * (powf(fmaxf(J, 1e-6f), -1.1f) - 1.0f);
 #pragma unroll
   for (int k = 0; k < 9; ++k) out[k] = (k % 4 == 0) ? J * pressure : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The constitutive pass of one particle (compute_stress_from_F_trial,
+// constitutive.py): the return map of F_trial by material (von Mises for
+// id 1, sand 2, viscoplastic 3, snow 5: svd3 of F_trial), then the
+// Kirchhoff stress of the returned F (FCR for ids 0 and 5, StVK for 1 and
+// 3, Drucker-Prager for 2, water for 6, zero for 4 and 7: det and svd3 of
+// F), symmetrized.  A material whose bit is clear in active_materials takes
+// no branch, as the plain version skips the materials absent from
+// cfg.active_materials.  B6 (fused_substep.cu) runs it between its advect
+// and its splat, B7 (constitutive.cu) on its own.
+// ---------------------------------------------------------------------------
+struct Plasticity {
+  float dt, hardening, xi, alpha, plastic_viscosity, softening;
+  int active_materials;  // bit m set: material id m is in cfg.active_materials
+};
+
+__device__ __forceinline__ bool has(int mask, int id) { return (mask >> id) & 1; }
+
+// ft: F_trial; mu, lam, ys: the particle's, updated in place; bulk: the
+// particle's bulk modulus, read by water alone; fn: the returned F; st: the
+// symmetrized stress
+__device__ __forceinline__ void constitutive_update(const float* ft, int mat, float& mu,
+                                                    float& lam, float& ys,
+                                                    const float* __restrict__ bulk,
+                                                    const Plasticity& prm, float* fn,
+                                                    float* st) {
+  const int mask = prm.active_materials;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) fn[k] = ft[k];
+  if ((mat == 1 || mat == 2 || mat == 3 || mat == 5) && has(mask, mat)) {
+    float u[9], sig[3], vv[9];
+    svd3(ft, u, sig, vv);
+    if (mat == 1) {
+      von_mises(ft, u, sig, vv, mu, lam, ys, prm.hardening, prm.xi, fn);
+    } else if (mat == 2) {
+      sand(ft, u, sig, vv, mu, lam, prm.alpha, fn);
+    } else if (mat == 3) {
+      viscoplastic(ft, u, sig, vv, mu, ys, prm.plastic_viscosity, prm.dt, fn);
+    } else {
+      snow(ft, u, sig, vv, mu, lam, ys, prm.hardening, prm.xi, prm.softening, fn);
+    }
+  }
+
+  float tau[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) tau[k] = 0.0f;
+  const bool fcr = (mat == 0 || mat == 5) && (has(mask, 0) || has(mask, 5) || has(mask, 6));
+  const bool stvk = (mat == 1 || mat == 3) && (has(mask, 1) || has(mask, 3));
+  const bool dp = mat == 2 && has(mask, 2);
+  const bool water = mat == 6 && has(mask, 6);
+  if (fcr || stvk || dp) {
+    float u[9], sig[3], vv[9];
+    svd3(fn, u, sig, vv);
+    if (fcr) {
+      stress_fcr(fn, u, vv, det3(fn), mu, lam, tau);
+    } else if (stvk) {
+      stress_stvk(fn, u, sig, vv, mu, lam, tau);
+    } else {
+      stress_drucker_prager(fn, u, sig, vv, mu, lam, tau);
+    }
+  } else if (water) {
+    stress_water(det3(fn), *bulk, tau);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) st[3 * r + c] = 0.5f * (tau[3 * r + c] + tau[3 * c + r]);
 }
 
 }  // namespace pixie

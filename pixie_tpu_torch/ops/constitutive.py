@@ -1,0 +1,108 @@
+"""The constitutive pass: the return map of F_trial and the Kirchhoff stress
+of the result, as one CUDA kernel launch, with its plain PyTorch version.
+
+Dispatch is by the device of the tensors, with no fallback:
+
+  * CPU tensors take ``sim.constitutive.compute_stress_from_F_trial``
+    unchanged;
+  * CUDA tensors launch the hand-written kernel of ``csrc/constitutive.cu``
+    (B7) on the current stream, or raise;
+  * any other device raises.
+
+The kernel replaces no TPU kernel: the JAX package leaves its plain pass to
+XLA, which fuses it into a few kernels, where eager PyTorch launches ~2,070
+small ones a substep.  Its per-particle math is ``mpm.cuh``'s
+``constitutive_update``, which the fused substep (B6) runs too.
+
+Like the plain version the pass is functional: F, stress, mu, lam and
+yield_stress come back in new tensors and the caller's state is not
+written.  ``CONSTITUTIVE_LAUNCHES`` counts kernel launches (plain-version
+calls are not counted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pixie_tpu_torch.ops.build import check_tensor, load_library, raise_on_error
+from pixie_tpu_torch.ops.fused_substep import material_mask
+from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
+from pixie_tpu_torch.sim.types import MPMConfig, MPMState
+
+CONSTITUTIVE_LAUNCHES = 0
+# layouts of the kernel's 36-byte row accesses (csrc/constitutive.cu): one
+# thread a row, or the block's rows staged through shared memory with
+# 16-byte coalesced accesses; SHIPPED is the one the pass launches (0.1081
+# against 0.1294 ms at 500k config-5 particles, NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md), the other an ablation that chip_smoke.py times and no
+# path of the port calls
+LAYOUTS = {"rows": 0, "staged": 1}
+SHIPPED = "staged"
+
+_OUTPUTS = ("F", "stress", "mu", "lam", "yield_stress")
+_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library("constitutive")
+    if not getattr(lib, "_pixie_typed", False):
+        lib.pixie_constitutive.argtypes = ([_c_int] + [_c_void_p] * 14 + [_c_int]
+                                           + [_c_float] * 6 + [_c_int, _c_void_p])
+        lib.pixie_constitutive.restype = _c_int
+        lib.pixie_error_string.argtypes = [_c_int]
+        lib.pixie_error_string.restype = ctypes.c_char_p
+        lib._pixie_typed = True
+    return lib
+
+
+def build() -> None:
+    """Compile (or load from the build cache) the constitutive kernel."""
+    _lib()
+
+
+def constitutive_pass(state: MPMState, cfg: MPMConfig, dt) -> MPMState:
+    """``compute_stress_from_F_trial``: the material's return map of
+    ``state.F_trial``, then the symmetrized Kirchhoff stress of the
+    returned F, for the particles with selection == 0; the others keep F,
+    stress, mu, lam and yield_stress.  Returns the state with those five
+    fields replaced by new tensors; ``state`` itself is not written."""
+    dev = state.F_trial.device
+    if dev.type == "cpu":
+        return compute_stress_from_F_trial(state, cfg, dt)
+    if dev.type != "cuda":
+        raise ValueError(f"constitutive_pass: unsupported device {dev}")
+    global CONSTITUTIVE_LAUNCHES
+    out = _launch(LAYOUTS[SHIPPED], state, cfg, dt)
+    CONSTITUTIVE_LAUNCHES += 1
+    return out
+
+
+def constitutive_variant(layout: str, state: MPMState, cfg: MPMConfig, dt) -> MPMState:
+    """The kernel with one of its ``LAYOUTS`` on CUDA tensors; not counted
+    in CONSTITUTIVE_LAUNCHES."""
+    if state.F_trial.device.type != "cuda":
+        raise ValueError(f"constitutive {layout}: a kernel layout, CUDA only")
+    return _launch(LAYOUTS[layout], state, cfg, dt)
+
+
+def _launch(layout: int, state: MPMState, cfg: MPMConfig, dt) -> MPMState:
+    n, dev, f32 = state.n_particles, state.F_trial.device, torch.float32
+    for name, shape in (("F_trial", (n, 3, 3)), ("F", (n, 3, 3)), ("stress", (n, 3, 3)),
+                        ("mu", (n,)), ("lam", (n,)), ("yield_stress", (n,)), ("bulk", (n,))):
+        check_tensor(name, getattr(state, name), shape, f32, dev)
+    for name in ("material", "selection"):
+        check_tensor(name, getattr(state, name), (n,), torch.int32, dev)
+    out = {k: torch.empty_like(getattr(state, k)) for k in _OUTPUTS}
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.pixie_constitutive(
+        layout, *(getattr(state, k).data_ptr() for k in ("F_trial", "F", "stress", "mu",
+                                                          "lam", "yield_stress", "material",
+                                                          "bulk", "selection")),
+        *(out[k].data_ptr() for k in _OUTPUTS), n, float(dt), float(cfg.hardening),
+        float(cfg.xi), float(cfg.alpha), float(cfg.plastic_viscosity), float(cfg.softening),
+        material_mask(cfg), stream)
+    raise_on_error(lib, code, "constitutive")
+    return state.replace(**out)

@@ -2,8 +2,9 @@
 (port of pixie_tpu/sim/solver.py; reference mpm_solver_warp.py:514-637).
 
 One solver for every device.  Its transfers go through
-``pixie_tpu_torch.ops.transfer``, which launches the CUDA P2G/G2P kernels on
-CUDA tensors and runs their plain versions on CPU tensors.  With ``fused``
+``pixie_tpu_torch.ops.transfer`` and its constitutive pass through
+``pixie_tpu_torch.ops.constitutive``, which launch the CUDA kernels on CUDA
+tensors and run their plain versions on CPU tensors.  With ``fused``
 (``PIXIE_FUSED=1``, default off as in JAX) a frame that no particle BC
 touches runs ``simulate_substeps_fused``: one ``ops.fused_substep`` launch
 per substep, G2P through the next P2G.  The JAX
@@ -22,10 +23,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pixie_tpu_torch.ops import constitutive
 from pixie_tpu_torch.ops import fused_substep as fs
 from pixie_tpu_torch.ops import transfer
 from pixie_tpu_torch.sim import bc as bc_mod
-from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
 from pixie_tpu_torch.sim.svd3 import matmul_nt, svd3
 from pixie_tpu_torch.sim.types import (
     MPMConfig, MPMState, finalize_mu_lam, get_material_id, make_state,
@@ -103,7 +104,7 @@ def _substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, node_x, resort: boo
             if isinstance(b, bc_mod.PARTICLE_BC_TYPES):
                 state = b.apply(time, dt, state)
     with obs.span("sim.constitutive"):
-        state = compute_stress_from_F_trial(state, cfg, dt)
+        state = constitutive.constitutive_pass(state, cfg, dt)
     with obs.span("sim.p2g"):
         grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
                                    state.vol, state.selection == 0, cfg, dt, return_order=True)
@@ -213,7 +214,7 @@ def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
         node_x = node_positions(cfg, state.device) if any(
             isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
         with obs.span("sim.constitutive"):
-            state = compute_stress_from_F_trial(state, cfg, dt)
+            state = constitutive.constitutive_pass(state, cfg, dt)
         active = state.selection == 0
         with obs.span("sim.p2g"):
             grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,

@@ -42,10 +42,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pixie_tpu_torch.ops import transfer
+from pixie_tpu_torch.ops import constitutive, transfer
 from pixie_tpu_torch.parallel.mesh import exchange
 from pixie_tpu_torch.sim import bc as bc_mod
-from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
 from pixie_tpu_torch.sim.solver import (
     _substep, g2p, grid_momentum_to_velocity, apply_grid_bcs, grid_update, node_positions,
     permute_state, run_frame,
@@ -298,7 +297,7 @@ def _halo_substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, slab: _Slab, n
     for b in bcs:
         if isinstance(b, bc_mod.PARTICLE_BC_TYPES):
             state = b.apply(time, dt, state)
-    state = compute_stress_from_F_trial(state, cfg, dt)
+    state = constitutive.constitutive_pass(state, cfg, dt)
     active = state.selection == 0
     xs, moved = _stencil_x(state.x, slab, cfg)
     grid, order = transfer.p2g(xs, state.v, state.C, state.stress, state.mass, state.vol,
