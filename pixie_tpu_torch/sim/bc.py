@@ -79,7 +79,11 @@ class SurfaceCollider:
 class CuboidVelocity:
     """Velocity Dirichlet cuboid, optionally moving
     (set_velocity_on_cuboid, mpm_solver_warp.py:853-908).  reset=1 zeroes the
-    WHOLE grid for 15 dt after end_time (mpm_solver_warp.py:895-897)."""
+    WHOLE grid for 15 dt after end_time (mpm_solver_warp.py:895-897).
+
+    A cuboid that does not move (its velocity is zero) keeps its node set
+    with the node positions it was computed on, so a frame, which passes the
+    same positions to each substep, computes it once."""
 
     point: torch.Tensor
     size: torch.Tensor
@@ -87,21 +91,34 @@ class CuboidVelocity:
     start_time: float = 0.0
     end_time: float = 999.0
     reset: int = 0
+    still: bool = dataclasses.field(init=False, repr=False, compare=False)
+    _held: tuple | None = dataclasses.field(default=None, init=False, repr=False,
+                                            compare=False)
+
+    def __post_init__(self):
+        self.still = not bool(torch.any(self.velocity != 0))
 
     def apply(self, time, dt, grid_v, node_x, cfg):
         t = _f32(time)
         active = _active(t, self.start_time, self.end_time)
         out = grid_v
         if active:
-            travel = _f32(np.clip(t, _f32(self.start_time), _f32(self.end_time))
-                          - _f32(self.start_time))
-            point = self.point + self.velocity * float(travel)
-            inside = torch.all((node_x - point).abs() < self.size, dim=-1)
-            out = torch.where(inside[..., None], self.velocity, grid_v)
+            out = torch.where(self._inside(t, node_x)[..., None], self.velocity, grid_v)
         if self.reset == 1 and not active and bool(
                 t < _f32(self.end_time) + _f32(15.0) * _f32(dt)):
             out = torch.zeros_like(out)
         return out
+
+    def _inside(self, t, node_x) -> torch.Tensor:
+        if self._held is not None and self._held[0] is node_x:
+            return self._held[1]
+        travel = _f32(np.clip(t, _f32(self.start_time), _f32(self.end_time))
+                      - _f32(self.start_time))
+        point = self.point + self.velocity * float(travel)
+        inside = torch.all((node_x - point).abs() < self.size, dim=-1)
+        if self.still:
+            self._held = (node_x, inside)
+        return inside
 
 
 @dataclasses.dataclass

@@ -15,6 +15,7 @@ current state, then step.  Writes ``sim_info.json`` and, with ``debug``,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import time
@@ -35,6 +36,7 @@ from pixie_tpu_torch.sim.filling import fill_particles, get_particle_volume
 from pixie_tpu_torch.sim.params import decode_param_json
 from pixie_tpu_torch.sim.render_sim import SimRenderer, save_frame_png
 from pixie_tpu_torch.sim.solver import MPMSolver, compute_cov_from_F
+from pixie_tpu_torch.utils import observability as obs
 from pixie_tpu_torch.utils import viz
 from pixie_tpu_torch.utils.io import load_material_ply, make_material_vertex, write_ply
 
@@ -94,81 +96,22 @@ def run_simulation(
     device = torch.device(device)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    (material_params, bc_params, time_params, preprocessing_params,
-     camera_params) = decode_param_json(config_path)
-
-    params = load_material_ply(point_cloud_path)
-    z_shift = preprocessing_params.get("z_shift_value", 0.0)
-    rotation_matrices = tf.generate_rotation_matrices(
-        preprocessing_params.get("rotation_degree", []) or [],
-        preprocessing_params.get("rotation_axis", []) or [],
-    )
-    gs_payload = init_cov_mpm = None
-    if gaussian_checkpoint is not None:
-        (init_cov_mpm, gs_payload, scale_origin, original_mean_pos,
-         pos_mpm) = _prepare_gaussian_particles(gaussian_checkpoint, preprocessing_params,
-                                                material_params, rotation_matrices, device)
-        sub_params = dict(params)  # the whole PLY is the material source
-    else:
-        pos = tf.apply_rotations(params["pos"].astype(np.float32), rotation_matrices)
-        n0 = len(pos)
-        keep = np.ones(n0, bool)
-        sim_area = preprocessing_params.get("sim_area")
-        if sim_area is not None:
-            bounds = np.asarray(sim_area, np.float32).reshape(3, 2)
-            keep = np.all((pos >= bounds[:, 0]) & (pos <= bounds[:, 1]), axis=1)
-            pos = pos[keep]
-            logging.info("sim_area crop: %d -> %d particles", n0, len(pos))
-        pos_norm, scale_origin, original_mean_pos = tf.transform2origin(pos)
-        pos_mpm = tf.shift2center111(pos_norm, z_shift)
-        sub_params = {k: (np.asarray(v)[keep] if np.asarray(v).shape[:1] == (n0,) else v)
-                      for k, v in params.items()}
-        sub_params["pos"] = pos  # original-frame positions (identity kNN)
-    n = len(pos_mpm)
-    logging.info("Loaded %d particles from %s", n, gaussian_checkpoint or point_cloud_path)
-
-    if gaussian_checkpoint is not None and particle_volume is None:
-        # per-cell volume split; uniform for sand (gs_simulation.py:466-470)
-        vols = get_particle_volume(
-            pos_mpm, material_params["n_grid"],
-            material_params["grid_lim"] / material_params["n_grid"],
-            uniform=material_params.get("material") == "sand")
-    else:
-        if particle_volume is None:
-            particle_volume = 1.0 / max(n, 1)  # uniform estimate, unit cube
-        vols = np.full(n, particle_volume, np.float32)
-
-    solver = MPMSolver(device=device, fused=fused)
-    solver.load_initial_data(pos_mpm, vols, cov=init_cov_mpm,
-                             n_grid=material_params["n_grid"],
-                             grid_lim=material_params["grid_lim"])
-    g = material_params["g"]
-    if np.isscalar(g):
-        g = [0.0, 0.0, -abs(float(g))]
-    setup = {k: v for k, v in material_params.items() if k not in ("n_grid", "grid_lim")}
-    setup["g"] = g
-    solver.set_parameters_dict(setup)
-
-    mpm_world = tf.apply_inverse_rotations(
-        tf.undotransform2origin(tf.undoshift2center111(pos_mpm, z_shift),
-                                scale_origin, original_mean_pos),
-        rotation_matrices)
-    conf, auto_bcs = mf.apply_material_field_to_simulation(
-        solver, sub_params, mpm_positions_world=mpm_world,
-        only_handle_largest_cluster=preprocessing_params["only_handle_largest_cluster"],
-        fix_ground=preprocessing_params["fix_ground"],
-        k_smoothing_neighbors=preprocessing_params["k_smoothing_neighbors"],
-        nn_distance_threshold=preprocessing_params["nn_distance_threshold"],
-    )
-    solver.bcs.extend(build_boundary_conditions(bc_params, time_params, pos_mpm,
-                                                device=device))
+    decoded = decode_param_json(config_path)
+    time_params, camera_params = decoded[2], decoded[4]
+    gaussians = None if gaussian_checkpoint is None else load_gaussians(gaussian_checkpoint)
+    sim = setup_simulation(load_material_ply(point_cloud_path), decoded, gaussians,
+                           particle_volume=particle_volume, device=device, fused=fused)
+    logging.info("Loaded %d particles from %s", sim.n_particles,
+                 gaussian_checkpoint or point_cloud_path)
+    solver, conf, auto_bcs, gs_payload = sim.solver, sim.conf, sim.auto_bcs, sim.gs_payload
+    n, z_shift, rotation_matrices = sim.n_particles, sim.z_shift, sim.rotation_matrices
+    scale_origin, original_mean_pos = sim.scale_origin, sim.original_mean_pos
     if debug:
         (output_dir / "boundary_conditions.json").write_text(json.dumps(auto_bcs, indent=2))
 
-    substep_dt = time_params["substep_dt"]
+    substep_dt, steps_per_frame = sim.substep_dt, sim.steps_per_frame
     frame_dt = time_params["frame_dt"]
     frame_num = int(n_frames if n_frames is not None else time_params["frame_num"])
-    steps_per_frame = max(int(round(frame_dt / substep_dt)), 1)
 
     ply_dir = output_dir / "ply_files"
     if save_ply:
@@ -256,6 +199,118 @@ def run_simulation(
     return info
 
 
+
+@dataclasses.dataclass
+class SimSetup:
+    """What ``setup_simulation`` hands the frame loop: the solver ready to
+    step, the frame's substeps and their dt, and what the exports need."""
+
+    solver: MPMSolver
+    steps_per_frame: int
+    substep_dt: float
+    n_particles: int
+    conf: np.ndarray                 # the material field's per-particle confidence
+    auto_bcs: list                   # the material field's BC dicts (ground, stationary)
+    scale_origin: float
+    original_mean_pos: np.ndarray
+    rotation_matrices: list
+    z_shift: float
+    gs_payload: dict | None          # GS mode: shs, opacity, unselected, gs_num
+
+
+def setup_simulation(params: dict, decoded: tuple, gaussians: dict | None = None,
+                     particle_volume: float | None = None,
+                     device: str | torch.device = "cuda",
+                     fused: bool | None = None) -> SimSetup:
+    """``run_simulation``'s set-up from inputs already in memory.
+
+    ``params``: the material source in ``load_material_ply``'s schema;
+    ``decoded``: ``decode_params``' five groups of the class config;
+    ``gaussians``: a 3DGS model in ``load_gaussian_ply``'s schema (GS mode),
+    or None (point-cloud mode: the material source's vertices are the
+    particles).  Rotations, crop, the transform into the MPM cube, particle
+    volumes and the solver's parameters (the span ``sim.setup.particles``),
+    then the material field: kNN smoothing, the ground and stationary
+    cuboids (``sim.setup.material_field``), then the config's BCs.  While a
+    tracer is on, the counters ``sim.materials.<id>`` hold the particles of
+    each material id."""
+    device = torch.device(device)
+    material_params, bc_params, time_params, preprocessing_params, _ = decoded
+    z_shift = preprocessing_params.get("z_shift_value", 0.0)
+    rotation_matrices = tf.generate_rotation_matrices(
+        preprocessing_params.get("rotation_degree", []) or [],
+        preprocessing_params.get("rotation_axis", []) or [],
+    )
+    with obs.span("sim.setup.particles"):
+        gs_payload = init_cov_mpm = None
+        if gaussians is not None:
+            (init_cov_mpm, gs_payload, scale_origin, original_mean_pos,
+             pos_mpm) = _prepare_gaussian_particles(gaussians, preprocessing_params,
+                                                    material_params, rotation_matrices, device)
+            sub_params = dict(params)  # the whole PLY is the material source
+        else:
+            pos = tf.apply_rotations(params["pos"].astype(np.float32), rotation_matrices)
+            n0 = len(pos)
+            keep = np.ones(n0, bool)
+            sim_area = preprocessing_params.get("sim_area")
+            if sim_area is not None:
+                bounds = np.asarray(sim_area, np.float32).reshape(3, 2)
+                keep = np.all((pos >= bounds[:, 0]) & (pos <= bounds[:, 1]), axis=1)
+                pos = pos[keep]
+                logging.info("sim_area crop: %d -> %d particles", n0, len(pos))
+            pos_norm, scale_origin, original_mean_pos = tf.transform2origin(pos)
+            pos_mpm = tf.shift2center111(pos_norm, z_shift)
+            sub_params = {k: (np.asarray(v)[keep] if np.asarray(v).shape[:1] == (n0,) else v)
+                          for k, v in params.items()}
+            sub_params["pos"] = pos  # original-frame positions (identity kNN)
+        n = len(pos_mpm)
+
+        if gaussians is not None and particle_volume is None:
+            # per-cell volume split; uniform for sand (gs_simulation.py:466-470)
+            vols = get_particle_volume(
+                pos_mpm, material_params["n_grid"],
+                material_params["grid_lim"] / material_params["n_grid"],
+                uniform=material_params.get("material") == "sand")
+        else:
+            if particle_volume is None:
+                particle_volume = 1.0 / max(n, 1)  # uniform estimate, unit cube
+            vols = np.full(n, particle_volume, np.float32)
+
+        solver = MPMSolver(device=device, fused=fused)
+        solver.load_initial_data(pos_mpm, vols, cov=init_cov_mpm,
+                                 n_grid=material_params["n_grid"],
+                                 grid_lim=material_params["grid_lim"])
+        g = material_params["g"]
+        if np.isscalar(g):
+            g = [0.0, 0.0, -abs(float(g))]
+        setup = {k: v for k, v in material_params.items() if k not in ("n_grid", "grid_lim")}
+        setup["g"] = g
+        solver.set_parameters_dict(setup)
+
+    with obs.span("sim.setup.material_field"):
+        mpm_world = tf.apply_inverse_rotations(
+            tf.undotransform2origin(tf.undoshift2center111(pos_mpm, z_shift),
+                                    scale_origin, original_mean_pos),
+            rotation_matrices)
+        conf, auto_bcs = mf.apply_material_field_to_simulation(
+            solver, sub_params, mpm_positions_world=mpm_world,
+            only_handle_largest_cluster=preprocessing_params["only_handle_largest_cluster"],
+            fix_ground=preprocessing_params["fix_ground"],
+            k_smoothing_neighbors=preprocessing_params["k_smoothing_neighbors"],
+            nn_distance_threshold=preprocessing_params["nn_distance_threshold"],
+        )
+    if obs.enabled():
+        ids, counts = torch.unique(solver.state.material, return_counts=True)
+        for i, c in zip(ids.tolist(), counts.tolist()):
+            obs.count(f"sim.materials.{i}", c)
+    solver.bcs.extend(build_boundary_conditions(bc_params, time_params, pos_mpm,
+                                                device=device))
+    substep_dt = time_params["substep_dt"]
+    steps_per_frame = max(int(round(time_params["frame_dt"] / substep_dt)), 1)
+    return SimSetup(solver, steps_per_frame, substep_dt, n, conf, auto_bcs, scale_origin,
+                    original_mean_pos, rotation_matrices, z_shift, gs_payload)
+
+
 def _export_cov(solver: MPMSolver) -> torch.Tensor:
     """Current per-particle covariances on the device
     (export_particle_cov_to_torch, mpm_solver_warp.py:715-741): transported
@@ -265,24 +320,28 @@ def _export_cov(solver: MPMSolver) -> torch.Tensor:
     return compute_cov_from_F(solver.state)
 
 
-def _prepare_gaussian_particles(gaussian_checkpoint, preprocessing_params,
-                                material_params, rotation_matrices, device):
-    """3DGS checkpoint -> simulation particles, reference order
-    (gs_simulation.py:402-482): opacity filter -> rotations -> sim_area crop
-    (crop-excluded gaussians kept for static rendering) -> transform2origin
-    + shift2center111 -> MPM-frame covariances (apply_cov_rotations *
-    scale_origin**2) -> optional internal particle filling, its scans on
-    ``device`` (filled particles follow the ``gs_num`` gaussians with zero
-    covariance and are not rendered).
-
-    Returns (init_cov_mpm, gs_payload, scale_origin, original_mean_pos, pos_mpm).
-    """
+def load_gaussians(gaussian_checkpoint) -> dict:
+    """A 3DGS model dir (its latest ``point_cloud/iteration_*``) or a
+    point_cloud.ply -> the gaussians in ``load_gaussian_ply``'s schema."""
     path = Path(gaussian_checkpoint)
     if path.is_dir():
         pc_dir = path / "point_cloud"
         path = pc_dir / f"iteration_{search_for_max_iteration(pc_dir)}" / "point_cloud.ply"
-    gs = load_gaussian_ply(path)
+    return load_gaussian_ply(path)
 
+
+def _prepare_gaussian_particles(gs, preprocessing_params, material_params, rotation_matrices,
+                                device):
+    """3DGS model (``load_gaussian_ply``'s schema) -> simulation particles,
+    reference order (gs_simulation.py:402-482): opacity filter -> rotations
+    -> sim_area crop (crop-excluded gaussians kept for static rendering) ->
+    transform2origin + shift2center111 -> MPM-frame covariances
+    (apply_cov_rotations * scale_origin**2) -> optional internal particle
+    filling, its scans on ``device`` (filled particles follow the ``gs_num``
+    gaussians with zero covariance and are not rendered).
+
+    Returns (init_cov_mpm, gs_payload, scale_origin, original_mean_pos, pos_mpm).
+    """
     opacity = get_opacity(gs).numpy()                # activated (N,1)
     keep = opacity[:, 0] > preprocessing_params["opacity_threshold"]
     init_pos = gs["xyz"].numpy()[keep]

@@ -6,7 +6,8 @@ pixie_tpu/sim/material_field.py; reference material_field.py).
   * ground cuboid BC (fix_to_ground);
   * DBSCAN of stationary particles -> pinned cuboids
     (handle_stationary_clusters), on the host over ``scipy.spatial.cKDTree``
-    with scikit-learn's labelling order (scikit-learn is not a dependency);
+    and ``scipy.sparse.csgraph`` with scikit-learn's labelling order
+    (scikit-learn is not a dependency);
   * per-particle parameter assignment and mu/lam finalization.
 """
 
@@ -171,31 +172,39 @@ def dbscan(points: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
     """DBSCAN labels with scikit-learn's semantics and labelling order.
 
     Neighbourhoods include the point itself and every point at distance
-    <= eps; core points have >= min_samples of them.  Clusters are grown by
-    the same depth-first expansion as sklearn's ``dbscan_inner``, visiting
-    seed points in index order, so cluster ids match; noise is -1.
+    <= eps; core points have >= min_samples of them.  sklearn's
+    ``dbscan_inner`` grows one cluster at a time, seeded at the first core
+    point (by index) not yet labelled, so the clusters are the connected
+    components of the core points' neighbour graph, numbered in the order
+    of their first core point, and a border point joins the lowest-numbered
+    cluster among its core neighbours; noise is -1.  Computed so, from the
+    tree's neighbour pairs, with no loop over the points.
     """
+    from scipy.sparse import coo_matrix  # noqa: PLC0415
+    from scipy.sparse.csgraph import connected_components  # noqa: PLC0415
     from scipy.spatial import cKDTree  # noqa: PLC0415
 
     n = len(points)
     labels = np.full(n, -1, np.int64)
     if n == 0:
         return labels
-    neighborhoods = cKDTree(points).query_ball_point(points, r=eps)
-    is_core = np.array([len(nb) >= min_samples for nb in neighborhoods])
-    label = 0
-    for i in range(n):
-        if labels[i] != -1 or not is_core[i]:
-            continue
-        stack = [i]
-        while stack:
-            j = stack.pop()
-            if labels[j] != -1:
-                continue
-            labels[j] = label
-            if is_core[j]:
-                stack.extend(v for v in neighborhoods[j] if labels[v] == -1)
-        label += 1
+    i, j = cKDTree(points).query_pairs(r=eps, output_type="ndarray").T
+    is_core = np.bincount(np.concatenate([i, j]), minlength=n) + 1 >= min_samples
+    both = is_core[i] & is_core[j]
+    graph = coo_matrix((np.ones(int(both.sum()), np.int8), (i[both], j[both])), shape=(n, n))
+    _, comp = connected_components(graph, directed=False)
+    core = np.flatnonzero(is_core)
+    comps, first = np.unique(comp[core], return_index=True)
+    number = np.empty(comp.max() + 1, np.int64)
+    number[comps[np.argsort(first)]] = np.arange(len(comps))
+    labels[core] = number[comp[core]]
+    none = np.iinfo(np.int64).max
+    border = np.full(n, none)
+    for a, b in ((i, j), (j, i)):
+        sel = is_core[a] & ~is_core[b]
+        np.minimum.at(border, b[sel], labels[a[sel]])
+    reached = ~is_core & (border != none)
+    labels[reached] = border[reached]
     return labels
 
 

@@ -56,7 +56,19 @@ def node_positions(cfg: MPMConfig, device) -> torch.Tensor:
 
 
 def apply_grid_bcs(v_out, node_x, cfg: MPMConfig, dt, time, bcs: Sequence):
-    """Grid BCs in insertion order (mpm_solver_warp.py:604-621)."""
+    """Grid BCs in insertion order (mpm_solver_warp.py:604-621).  While a
+    tracer is on, a call that applies a cuboid BC (the material field's
+    ground and stationary cuboids) is the span ``sim.grid_bc`` and adds its
+    cuboids to the counter ``sim.bc.grid_cuboids``."""
+    cuboids = obs.enabled() and sum(isinstance(b, bc_mod.CuboidVelocity) for b in bcs)
+    if not cuboids:
+        return _apply_grid_bcs(v_out, node_x, cfg, dt, time, bcs)
+    obs.count("sim.bc.grid_cuboids", cuboids)
+    with obs.span("sim.grid_bc"):
+        return _apply_grid_bcs(v_out, node_x, cfg, dt, time, bcs)
+
+
+def _apply_grid_bcs(v_out, node_x, cfg: MPMConfig, dt, time, bcs: Sequence):
     for b in bcs:
         if isinstance(b, bc_mod.GRID_BC_TYPES):
             v_out = b.apply(time, dt, v_out, node_x, cfg)
