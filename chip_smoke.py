@@ -357,7 +357,9 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 def _reset_counts() -> None:
     from pixie_tpu_torch.ops import (constitutive, fused_substep, gather, gs_stream,
                                      probe_ablation, transfer)
+    from pixie_tpu_torch.sim import solver
 
+    solver.GRAPH_CAPTURES = solver.GRAPH_REPLAYS = 0
     transfer.P2G_LAUNCHES = transfer.G2P_LAUNCHES = 0
     gs_stream.BLEND_LAUNCHES = gs_stream.BLEND_BWD_LAUNCHES = 0
     fused_substep.FUSED_LAUNCHES = 0
@@ -366,15 +368,28 @@ def _reset_counts() -> None:
     gather.LAUNCHES.update({0: 0, 1: 0})
 
 
-def _read_counts() -> dict:
-    from pixie_tpu_torch.ops import (constitutive, fused_substep, gather, gs_stream,
-                                     probe_ablation, transfer)
+def _transfer_runs() -> tuple[int, int, int]:
+    """The times B1, B2 and B7 ran: their wrappers' launches, less the
+    unfused frames' CUDA-graph captures (each calls every wrapper once and
+    runs nothing), plus the graphs' replays (each runs all three once)."""
+    from pixie_tpu_torch.ops import constitutive, transfer
+    from pixie_tpu_torch.sim import solver
 
-    return {"p2g": transfer.P2G_LAUNCHES, "g2p": transfer.G2P_LAUNCHES,
+    extra = solver.GRAPH_REPLAYS - solver.GRAPH_CAPTURES
+    return (transfer.P2G_LAUNCHES + extra, transfer.G2P_LAUNCHES + extra,
+            constitutive.CONSTITUTIVE_LAUNCHES + extra)
+
+
+def _read_counts() -> dict:
+    """Kernel runs by name (B1, B2 and B7 as ``_transfer_runs`` counts them)."""
+    from pixie_tpu_torch.ops import fused_substep, gather, gs_stream, probe_ablation
+
+    p2g, g2p, b7 = _transfer_runs()
+    return {"p2g": p2g, "g2p": g2p,
             "gs_blend": gs_stream.BLEND_LAUNCHES,
             "gs_blend_backward": gs_stream.BLEND_BWD_LAUNCHES,
             "fused_substep": fused_substep.FUSED_LAUNCHES,
-            "constitutive": constitutive.CONSTITUTIVE_LAUNCHES,
+            "constitutive": b7,
             **{f"probe_p2g_{m}": probe_ablation.LAUNCHES[m] for m in probe_ablation.MODES},
             **{f"gather_axis{a}": gather.LAUNCHES[a] for a in (0, 1)}}
 
@@ -3015,17 +3030,15 @@ def _reset_peak(dev) -> None:
 
 
 def _timed_frame(dev, fn) -> tuple:
-    """``fn()`` between two synchronizes: its result, seconds, and the P2G
-    and G2P launches it made."""
-    from pixie_tpu_torch.ops import transfer
-
+    """``fn()`` between two synchronizes: its result, seconds, and the
+    times P2G and G2P ran in it (``_transfer_runs``)."""
     _sync(dev)
-    before = transfer.P2G_LAUNCHES, transfer.G2P_LAUNCHES
+    before = _transfer_runs()
     t0 = time.perf_counter()
     out = fn()
     _sync(dev)
-    return out, time.perf_counter() - t0, (transfer.P2G_LAUNCHES - before[0],
-                                           transfer.G2P_LAUNCHES - before[1])
+    after = _transfer_runs()
+    return out, time.perf_counter() - t0, (after[0] - before[0], after[1] - before[1])
 
 
 def _multi_mpm(rank: int, world: int, dev, args: dict) -> dict:

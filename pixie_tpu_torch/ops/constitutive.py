@@ -15,9 +15,10 @@ small ones a substep.  Its per-particle math is ``mpm.cuh``'s
 ``constitutive_update``, which the fused substep (B6) runs too.
 
 Like the plain version the pass is functional: F, stress, mu, lam and
-yield_stress come back in new tensors and the caller's state is not
-written.  ``CONSTITUTIVE_LAUNCHES`` counts kernel launches (plain-version
-calls are not counted).
+yield_stress (``OUTPUTS``) come back in new tensors, or in the tensors
+given as ``out``, and the caller's state is not written.
+``CONSTITUTIVE_LAUNCHES`` counts kernel launches (plain-version calls are
+not counted).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ CONSTITUTIVE_LAUNCHES = 0
 LAYOUTS = {"rows": 0, "staged": 1}
 SHIPPED = "staged"
 
-_OUTPUTS = ("F", "stress", "mu", "lam", "yield_stress")
+OUTPUTS = ("F", "stress", "mu", "lam", "yield_stress")
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -62,21 +63,29 @@ def build() -> None:
     _lib()
 
 
-def constitutive_pass(state: MPMState, cfg: MPMConfig, dt) -> MPMState:
+def constitutive_pass(state: MPMState, cfg: MPMConfig, dt,
+                      out: dict[str, torch.Tensor] | None = None) -> MPMState:
     """``compute_stress_from_F_trial``: the material's return map of
     ``state.F_trial``, then the symmetrized Kirchhoff stress of the
     returned F, for the particles with selection == 0; the others keep F,
     stress, mu, lam and yield_stress.  Returns the state with those five
-    fields replaced by new tensors; ``state`` itself is not written."""
+    fields replaced by new tensors, or by ``out``'s (a tensor for each name
+    of ``OUTPUTS``, none of them the state's own), which the pass writes;
+    ``state`` itself is not written."""
     dev = state.F_trial.device
     if dev.type == "cpu":
-        return compute_stress_from_F_trial(state, cfg, dt)
+        new = compute_stress_from_F_trial(state, cfg, dt)
+        if out is None:
+            return new
+        for k in OUTPUTS:
+            out[k].copy_(getattr(new, k))
+        return state.replace(**out)
     if dev.type != "cuda":
         raise ValueError(f"constitutive_pass: unsupported device {dev}")
     global CONSTITUTIVE_LAUNCHES
-    out = _launch(LAYOUTS[SHIPPED], state, cfg, dt)
+    new = _launch(LAYOUTS[SHIPPED], state, cfg, dt, out)
     CONSTITUTIVE_LAUNCHES += 1
-    return out
+    return new
 
 
 def constitutive_variant(layout: str, state: MPMState, cfg: MPMConfig, dt) -> MPMState:
@@ -87,21 +96,24 @@ def constitutive_variant(layout: str, state: MPMState, cfg: MPMConfig, dt) -> MP
     return _launch(LAYOUTS[layout], state, cfg, dt)
 
 
-def _launch(layout: int, state: MPMState, cfg: MPMConfig, dt) -> MPMState:
+def _launch(layout: int, state: MPMState, cfg: MPMConfig, dt, out=None) -> MPMState:
     n, dev, f32 = state.n_particles, state.F_trial.device, torch.float32
     for name, shape in (("F_trial", (n, 3, 3)), ("F", (n, 3, 3)), ("stress", (n, 3, 3)),
                         ("mu", (n,)), ("lam", (n,)), ("yield_stress", (n,)), ("bulk", (n,))):
         check_tensor(name, getattr(state, name), shape, f32, dev)
     for name in ("material", "selection"):
         check_tensor(name, getattr(state, name), (n,), torch.int32, dev)
-    out = {k: torch.empty_like(getattr(state, k)) for k in _OUTPUTS}
+    if out is None:
+        out = {k: torch.empty_like(getattr(state, k)) for k in OUTPUTS}
+    for k in OUTPUTS:
+        check_tensor(f"out[{k!r}]", out[k], tuple(getattr(state, k).shape), f32, dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.pixie_constitutive(
         layout, *(getattr(state, k).data_ptr() for k in ("F_trial", "F", "stress", "mu",
                                                           "lam", "yield_stress", "material",
                                                           "bulk", "selection")),
-        *(out[k].data_ptr() for k in _OUTPUTS), n, float(dt), float(cfg.hardening),
+        *(out[k].data_ptr() for k in OUTPUTS), n, float(dt), float(cfg.hardening),
         float(cfg.xi), float(cfg.alpha), float(cfg.plastic_viscosity), float(cfg.softening),
         material_mask(cfg), stream)
     raise_on_error(lib, code, "constitutive")

@@ -1,8 +1,11 @@
 """Boundary conditions (port of pixie_tpu/sim/bc.py; reference
 mpm_solver_warp.py:749-1211, decode_param.py:277-396).
 
-Each BC is a small dataclass holding tensors on the solver's device and an
-``apply`` method.  Time gating is decided on the host from float32 scalars:
+Each BC is a small dataclass holding tensors on the solver's device, an
+``apply`` method and a ``host_key`` method, which returns what ``apply``
+decides on the host at a time (the solver replays a captured substep only
+while its BCs' keys stay those of the capture).  Time gating is decided on
+the host from float32 scalars:
 the solver passes ``time = f32(time0) + f32(step) * f32(dt)``, exactly the
 JAX scan's expression (pixie_tpu/sim/solver.py:291), and every comparison
 below rounds its operands to float32 first.  A one-substep impulse
@@ -28,10 +31,17 @@ def _vec(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
+class _Windowed:
+    """A BC whose ``apply`` decides on the host only whether it is active."""
+
+    def host_key(self, time, dt):
+        return _active(time, self.start_time, self.end_time)
+
+
 # -- grid BCs ----------------------------------------------------------------
 
 @dataclasses.dataclass
-class SurfaceCollider:
+class SurfaceCollider(_Windowed):
     """Half-space collider; surface types 0=sticky, 1=slip, 2=frictional,
     11=cut.  ``legacy_zero_velocity`` reproduces the PhysGaussian fork, which
     zeroes slip/frictional velocities too (mpm_solver_warp.py:838-840)."""
@@ -104,10 +114,22 @@ class CuboidVelocity:
         out = grid_v
         if active:
             out = torch.where(self._inside(t, node_x)[..., None], self.velocity, grid_v)
-        if self.reset == 1 and not active and bool(
-                t < _f32(self.end_time) + _f32(15.0) * _f32(dt)):
+        if self._resets(t, dt, active):
             out = torch.zeros_like(out)
         return out
+
+    def host_key(self, time, dt):
+        """(active, whether the reset zeroes the grid); None while a moving
+        cuboid is active, since its position changes every substep."""
+        t = _f32(time)
+        active = _active(t, self.start_time, self.end_time)
+        if active and not self.still:
+            return None
+        return active, self._resets(t, dt, active)
+
+    def _resets(self, t, dt, active) -> bool:
+        return self.reset == 1 and not active and bool(
+            t < _f32(self.end_time) + _f32(15.0) * _f32(dt))
 
     def _inside(self, t, node_x) -> torch.Tensor:
         if self._held is not None and self._held[0] is node_x:
@@ -122,7 +144,7 @@ class CuboidVelocity:
 
 
 @dataclasses.dataclass
-class BoundingBox:
+class BoundingBox(_Windowed):
     """Outward-velocity clamp at the domain faces, padding 3 cells
     (add_bounding_box, mpm_solver_warp.py:910-977)."""
 
@@ -147,7 +169,7 @@ class BoundingBox:
 # -- particle BCs (before P2G) -------------------------------------------------
 
 @dataclasses.dataclass
-class ParticleImpulse:
+class ParticleImpulse(_Windowed):
     """v += force / mass * dt while active (mpm_solver_warp.py:982-1029)."""
 
     force: torch.Tensor
@@ -163,7 +185,7 @@ class ParticleImpulse:
 
 
 @dataclasses.dataclass
-class ParticleVelocityTranslation:
+class ParticleVelocityTranslation(_Windowed):
     """Dirichlet particle velocity in a box (mpm_solver_warp.py:1031-1075)."""
 
     velocity: torch.Tensor
@@ -178,7 +200,7 @@ class ParticleVelocityTranslation:
 
 
 @dataclasses.dataclass
-class ParticleVelocityRotation:
+class ParticleVelocityRotation(_Windowed):
     """Rotate particles in a cylinder about ``normal`` (mpm_solver_warp.py:1080-1181)."""
 
     point: torch.Tensor

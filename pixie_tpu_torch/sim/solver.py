@@ -7,7 +7,9 @@ One solver for every device.  Its transfers go through
 tensors and run their plain versions on CPU tensors.  With ``fused``
 (``PIXIE_FUSED=1``, default off as in JAX) a frame that no particle BC
 touches runs ``simulate_substeps_fused``: one ``ops.fused_substep`` launch
-per substep, G2P through the next P2G.  The JAX
+per substep, G2P through the next P2G.  An unfused frame on the card
+captures its substep as a CUDA graph and replays it between re-sorts
+(``simulate_substeps``, ``frame_plan``).  The JAX
 package's tile-sorted fast path (solver_fast.py, ops/tiling.py, sim/soa.py,
 constitutive_soa.py) is the TPU's layout of the same math and has no
 counterpart here: ``run_simulation(use_fast_solver=...)`` routes both values
@@ -104,19 +106,22 @@ def p2g2p(state: MPMState, cfg: MPMConfig, bcs, time, dt,
 
 
 def _substep(state: MPMState, cfg: MPMConfig, bcs, time, dt, node_x, resort: bool,
-             grid_stage=None):
+             grid_stage=None, out=None):
     """p2g2p; with ``resort``, the state is permuted into P2G's cell order
     between P2G and G2P where P2G returns one (on the card).  Returns the
     state and that order (None if the state kept its order).
     ``grid_stage(grid, time) -> grid_v`` replaces ``grid_update`` (the
-    sharded frames of solver_dist.py sum the ranks' grids first).  Each
-    stage is a span of ``utils.observability``."""
+    sharded frames of solver_dist.py sum the ranks' grids first); ``out``
+    is the constitutive pass's (the tensors it writes F, stress, mu, lam
+    and yield_stress into).  Each stage is a span of
+    ``utils.observability``."""
     with obs.span("sim.particle_bc"):
         for b in bcs:
             if isinstance(b, bc_mod.PARTICLE_BC_TYPES):
                 state = b.apply(time, dt, state)
     with obs.span("sim.constitutive"):
-        state = constitutive.constitutive_pass(state, cfg, dt)
+        state = (constitutive.constitutive_pass(state, cfg, dt) if out is None
+                 else constitutive.constitutive_pass(state, cfg, dt, out=out))
     with obs.span("sim.p2g"):
         grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
                                    state.vol, state.selection == 0, cfg, dt, return_order=True)
@@ -142,6 +147,11 @@ RESORT_EVERY = 100
 # tracer is on; RESORT_EVERY is a multiple of it, so the first substep after
 # each re-sort is sampled
 RUN_LENGTH_EVERY = 10
+# CUDA graphs of the unfused substep captured, and replays of them (a
+# capture is replayed at once, so the replays count every substep a graph
+# ran); the wrappers' launch counters count the captures' calls only
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
 
 
 def permute_state(state: MPMState, idx: torch.Tensor) -> MPMState:
@@ -175,13 +185,20 @@ def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     one cell sit side by side in G2P's warps and gather the same nodes: the
     state is permuted into P2G's order between P2G and G2P of substep 0 and
     again every RESORT_EVERY substeps, the particle BCs' masks with it, and
-    the returned state is back in the caller's order.  On the CPU P2G
-    returns no order and the state keeps its order."""
+    the returned state is back in the caller's order.  Between re-sorts the
+    card replays the substep as a CUDA graph captured in the frame, where
+    ``frame_plan`` allows (``_GraphedSubsteps``): the same kernels on the
+    same inputs, launched by one call.  On the CPU P2G returns no order and
+    the state keeps its order, and every substep runs eagerly."""
     time0, dt = np.float32(time0), np.float32(dt)
     node_x = node_positions(cfg, state.device) if any(
         isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
-    return run_frame(state, bcs, time0, dt, n_substeps,
-                     lambda st, b, t, resort: _substep(st, cfg, b, t, dt, node_x, resort))
+    if state.device.type == "cuda":
+        substep = _GraphedSubsteps(cfg, dt, node_x, frame_plan(bcs, time0, dt, n_substeps))
+    else:
+        def substep(st, b, t, resort):
+            return _substep(st, cfg, b, t, dt, node_x, resort)
+    return run_frame(state, bcs, time0, dt, n_substeps, substep)
 
 
 def run_frame(state: MPMState, bcs, time0, dt, n_substeps: int, substep) -> MPMState:
@@ -199,6 +216,117 @@ def run_frame(state: MPMState, bcs, time0, dt, n_substeps: int, substep) -> MPMS
                 bcs = _permute_bcs(bcs, order)
                 frame = order if frame is None else frame[order]
         return state if frame is None else _caller_order(state, frame)
+
+
+def frame_plan(bcs, time0, dt, n_substeps: int) -> tuple[str, ...]:
+    """How a card frame runs each substep: "eager" (``_substep`` itself),
+    "capture" (a CUDA graph of ``_substep`` captured, then replayed) or
+    "replay" (a graph replayed).  A substep runs eagerly where it re-sorts
+    (every RESORT_EVERY), where a particle BC is active, where a BC's
+    ``host_key`` is None, or where its BCs' keys differ from those of the
+    frame's first capture, which a graph has baked in; of the others, the
+    first two capture the frame's two graphs and the rest replay them."""
+    time0, dt = np.float32(time0), np.float32(dt)
+    plan, captured, captures = [], None, 0
+    for step in range(n_substeps):
+        t = np.float32(time0 + np.float32(step) * dt)
+        keys = tuple(b.host_key(t, dt) for b in bcs)
+        if (step % RESORT_EVERY == 0 or None in keys
+                or any(k for b, k in zip(bcs, keys) if isinstance(b, bc_mod.PARTICLE_BC_TYPES))
+                or (captured is not None and keys != captured)):
+            plan.append("eager")
+        elif captures < 2:
+            captured, captures = keys, captures + 1
+            plan.append("capture")
+        else:
+            plan.append("replay")
+    return tuple(plan)
+
+
+class _GraphedSubsteps:
+    """``run_frame``'s substep in a card frame, run as ``frame_plan`` says.
+
+    The first capture takes the frame's state as the graphs' static
+    buffers.  The constitutive pass writes its outputs into the other of
+    two sets of them, so graph 0 reads set 0 and writes set 1, graph 1
+    reads set 1 and writes set 0, and no replay copies; B2 writes x, v, C,
+    F_trial and cov in place.  The graphs' own tensors (the grid, the
+    sort's buffers) live in one pool for every frame (``_CAPTURE``).  An
+    eager substep after the first capture copies what it returns in new
+    tensors (a re-sort's permuted state, the constitutive outputs) back
+    into the buffers.  Each capture goes through the module's ``_substep``
+    as it is then, and the graphs live as long as the frame.  While a
+    tracer is on, the stage spans are recorded at a capture and on eager
+    substeps, each replay is the span ``sim.graph``, and
+    ``sim.graph.captures`` / ``sim.graph.replays`` count as
+    ``GRAPH_CAPTURES`` / ``GRAPH_REPLAYS`` do."""
+
+    def __init__(self, cfg: MPMConfig, dt, node_x, plan):
+        self.cfg, self.dt, self.node_x, self.plan = cfg, dt, node_x, iter(plan)
+        self.graphs: list = []
+        self.states: list = []     # the static state with output set 0, set 1
+        self.p = 0                 # the set the state is in
+
+    def __call__(self, state: MPMState, bcs, t, resort: bool):
+        global GRAPH_REPLAYS
+        how = next(self.plan)
+        if how == "eager":
+            out, order = _substep(state, self.cfg, bcs, t, self.dt, self.node_x, resort)
+            return (_copy_into(state, out) if self.states else out), order
+        if how == "capture":
+            self._capture(state, bcs, t)
+        with obs.span("sim.graph"):
+            self.graphs[self.p].replay()
+        GRAPH_REPLAYS += 1
+        obs.count("sim.graph.replays", 1)
+        self.p ^= 1
+        return self.states[self.p], None
+
+    def _capture(self, state: MPMState, bcs, t) -> None:
+        global GRAPH_CAPTURES
+        if not self.states:
+            spare = {k: torch.empty_like(getattr(state, k)) for k in constitutive.OUTPUTS}
+            self.states = [state, state.replace(**spare)]
+        src, dst = self.states[self.p], self.states[self.p ^ 1]
+        dev = state.device
+        side, keeper = _CAPTURE.get(dev) or (torch.cuda.Stream(dev), None)
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=None if keeper is None else keeper.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                out, _ = _substep(src, self.cfg, bcs, t, self.dt, self.node_x, False,
+                                  out={k: getattr(dst, k) for k in constitutive.OUTPUTS})
+                # nothing as shipped; a field that a patched _substep hands
+                # back in another tensor is copied into the buffers
+                _copy_into(dst, out)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graphs.append(graph)
+        _CAPTURE[dev] = side, graph
+        GRAPH_CAPTURES += 1
+        obs.count("sim.graph.captures", 1)
+
+
+def _copy_into(state: MPMState, new: MPMState) -> MPMState:
+    """``state`` with every field that ``new`` holds in another tensor
+    copied in; returns ``state``."""
+    for f in dataclasses.fields(state):
+        t = getattr(new, f.name)
+        if t is not getattr(state, f.name):
+            getattr(state, f.name).copy_(t)
+    return state
+
+
+# by device: the stream the unfused frames capture on, and the newest of
+# their graphs, which keeps the graphs' memory pool alive from one frame to
+# the next.  The caching allocator hands a pool's freed blocks only to the
+# stream that freed them, and PyTorch drops a pool that no graph holds (its
+# id cannot be captured into again), so with both kept each frame's
+# captures reuse the blocks of the last frame's
+_CAPTURE: dict = {}
 
 
 def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,

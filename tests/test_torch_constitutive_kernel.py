@@ -226,15 +226,21 @@ def test_constitutive_kernel_one_material_set(cuda_device, mats):
 
 @pytest.mark.cuda
 def test_frames_on_cuda_launch_b7(cuda_device):
-    """An unfused frame of S substeps launches B7 S times, a fused frame
-    once (its prologue)."""
+    """An unfused frame of S substeps runs B7 S times, a fused frame once
+    (its prologue).  The unfused frame replays its substep as a CUDA graph:
+    its B7 runs are the wrapper's launches, less the graphs' captures (a
+    wrapper call that records the launch), plus their replays."""
     st, cfg = _card_state(2048, degenerate=False)
     for frame, want in ((tsolver.simulate_substeps, 6), (tsolver.simulate_substeps_fused, 1)):
-        before = (ops_const.CONSTITUTIVE_LAUNCHES, fs.FUSED_LAUNCHES)
+        before = (ops_const.CONSTITUTIVE_LAUNCHES, fs.FUSED_LAUNCHES, tsolver.GRAPH_CAPTURES,
+                  tsolver.GRAPH_REPLAYS)
         out = frame(_to(st, cuda_device), cfg, (), 0.0, DT, 6)
         torch.cuda.synchronize()
-        assert ops_const.CONSTITUTIVE_LAUNCHES - before[0] == want
-        assert fs.FUSED_LAUNCHES - before[1] == (5 if want == 1 else 0)
+        launches, fused, captures, replays = (a - b for a, b in zip(
+            (ops_const.CONSTITUTIVE_LAUNCHES, fs.FUSED_LAUNCHES, tsolver.GRAPH_CAPTURES,
+             tsolver.GRAPH_REPLAYS), before))
+        assert launches - captures + replays == want
+        assert fused == (5 if want == 1 else 0)
         assert bool(torch.isfinite(out.x).all())
 
 

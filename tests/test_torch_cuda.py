@@ -185,6 +185,137 @@ def test_unfused_frame_with_an_impulse_on_cuda_matches_cpu(cuda_device, monkeypa
                                       to_np(getattr(st, k))[inactive], err_msg=k)
 
 
+def _graph_case(case, dev, n=4096):
+    """A state and its BCs for the graphed unfused frame: config-style
+    jelly under gravity above a sticky collider, or jelly, metal and
+    stationary particles in turn under two still cuboids (a floor slab and
+    a block in the middle) with the covariance carried."""
+    from pixie_tpu_torch.sim import bc as bc_mod
+
+    st = _state(n=n, seed=21)
+    st = st.replace(F_trial=st.F.clone())
+    if case == "collider_gravity":
+        cfg = MPMConfig(n_grid=24, grid_lim=2.0, gravity=(0.0, 0.0, -9.8), rpic_damping=0.1)
+        bcs = (bc_mod.make_surface_collider((1.0, 1.0, 0.5), (0.0, 0.0, 1.0), "sticky",
+                                            device=dev),)
+    else:
+        mats = np.array([0, 1, 6], np.int32)[np.arange(n) % 3]
+        st = st.replace(material=torch.as_tensor(mats), yield_stress=torch.full((n,), 50.0))
+        cfg = MPMConfig(n_grid=24, grid_lim=2.0, active_materials=(0, 1, 6),
+                        update_cov_with_F=True)
+        bcs = tuple(bc_mod.make_cuboid_velocity(p, size, (0.0, 0.0, 0.0), device=dev)
+                    for p, size in (((1.0, 1.0, 0.3), (1.0, 1.0, 0.15)),
+                                    ((1.0, 1.0, 1.0), (0.2, 0.2, 0.2))))
+    return st, cfg, bcs
+
+
+def _all_to(st, dev):
+    import dataclasses
+
+    return st.replace(**{f.name: getattr(st, f.name).to(dev).clone()
+                         for f in dataclasses.fields(st)})
+
+
+def _graph_counts():
+    from pixie_tpu_torch.ops import constitutive as ops_const
+    from pixie_tpu_torch.sim import solver as S
+
+    return np.array([S.GRAPH_CAPTURES, S.GRAPH_REPLAYS, transfer.P2G_LAUNCHES,
+                     transfer.G2P_LAUNCHES, ops_const.CONSTITUTIVE_LAUNCHES])
+
+
+def _eager_frame(st, cfg, bcs, n):
+    """The unfused frame with every substep ``_substep`` itself."""
+    from pixie_tpu_torch.sim import solver as S
+
+    dt = np.float32(DT)
+    node_x = S.node_positions(cfg, st.device)
+    return S.run_frame(st, bcs, np.float32(0.0), dt, n,
+                       lambda s, b, t, resort: S._substep(s, cfg, b, t, dt, node_x, resort))
+
+
+def _assert_frame_close(got, want):
+    np.testing.assert_allclose(to_np(got.x), to_np(want.x), rtol=0, atol=1e-5)
+    w = to_np(want.v)
+    np.testing.assert_allclose(to_np(got.v), w, rtol=0, atol=1e-4 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("case", ["collider_gravity", "still_cuboids_mixed"])
+def test_graphed_frame_matches_the_eager_frame(cuda_device, monkeypatch, case):
+    """``simulate_substeps`` on the card (a re-sort every 3 substeps, 11
+    substeps: 4 eager, 2 captures, 5 replays) against the same frame with
+    every substep run eagerly from the same state: x within 1e-5, v within
+    1e-4 of its largest |value| (P2G's float atomics sum in a run-dependent
+    order); two captures, a replay for every substep the plan gives a graph,
+    and one wrapper call of B1, B2 and B7 for every eager substep and
+    capture."""
+    from pixie_tpu_torch.sim import solver as S
+
+    monkeypatch.setattr(S, "RESORT_EVERY", 3)
+    st, cfg, bcs = _graph_case(case, cuda_device)
+    n = 11
+    plan = S.frame_plan(bcs, 0.0, DT, n)
+    assert plan.count("eager") == 4 and plan.count("capture") == 2
+    want = _eager_frame(_all_to(st, cuda_device), cfg, bcs, n)
+    before = _graph_counts()
+    got = S.simulate_substeps(_all_to(st, cuda_device), cfg, bcs, 0.0, DT, n)
+    torch.cuda.synchronize()
+    captures, replays, *calls = _graph_counts() - before
+    assert (captures, replays) == (2, n - 4)
+    assert calls == [4 + 2] * 3
+    _assert_frame_close(got, want)
+    assert not np.array_equal(to_np(got.x), to_np(st.x))
+
+
+def test_graphed_frame_with_the_tracer_on(cuda_device, monkeypatch):
+    """The tracer on: the same captures, replays and wrapper calls as off,
+    each replay the span ``sim.graph`` inside ``sim.frame``, the stage spans
+    recorded at the captures and the eager substeps, the tracer's graph
+    counters equal to the module's, and the state within the eager
+    comparison's bounds of the frame with the tracer off (P2G's atomics
+    keep the two runs from agreeing bit for bit)."""
+    from pixie_tpu_torch.sim import solver as S
+    from pixie_tpu_torch.utils import observability as obs
+
+    monkeypatch.setattr(S, "RESORT_EVERY", 3)
+    st, cfg, bcs = _graph_case("still_cuboids_mixed", cuda_device)
+    n = 11
+    before = _graph_counts()
+    off = S.simulate_substeps(_all_to(st, cuda_device), cfg, bcs, 0.0, DT, n)
+    mid = _graph_counts()
+    with obs.tracing() as tr:
+        on = S.simulate_substeps(_all_to(st, cuda_device), cfg, bcs, 0.0, DT, n)
+    torch.cuda.synchronize()
+    assert list(_graph_counts() - mid) == list(mid - before)
+    captures, replays = (mid - before)[:2]
+    assert tr.counters["sim.graph.captures"] == captures == 2
+    assert tr.counters["sim.graph.replays"] == replays == n - 4
+    spans = tr.summary()
+    assert spans["sim.graph"]["calls"] == replays
+    for stage in ("sim.constitutive", "sim.p2g", "sim.grid", "sim.grid_bc", "sim.g2p"):
+        assert spans[stage]["calls"] == 4 + 2, stage
+    frame = [i for i, r in enumerate(tr.records) if r[0] == "sim.frame"]
+    assert all(r[1] in frame for r in tr.records if r[0] == "sim.graph")
+    _assert_frame_close(on, off)
+
+
+def test_graphed_frame_honours_a_patched_g2p(cuda_device, monkeypatch):
+    """A G2P patched on ``solver.g2p`` after a frame reaches the next
+    frame's captures: with a G2P that leaves the particles as they are, the
+    frame's x is its start x bit for bit, where the frame before moved
+    them."""
+    from pixie_tpu_torch.sim import solver as S
+
+    st, cfg, bcs = _graph_case("collider_gravity", cuda_device)
+    moved = S.simulate_substeps(_all_to(st, cuda_device), cfg, bcs, 0.0, DT, 12)
+    assert not np.array_equal(to_np(moved.x), to_np(st.x))
+    monkeypatch.setattr(S, "g2p", lambda state, grid_v, cfg, dt: state)
+    before = _graph_counts()
+    kept = S.simulate_substeps(_all_to(st, cuda_device), cfg, bcs, 0.0, DT, 12)
+    assert (_graph_counts() - before)[0] == 2
+    np.testing.assert_array_equal(to_np(kept.x), to_np(st.x))
+
+
 def _p2g_binned_case(case, n_grid=24):
     """B1's cases: the random state of _state (every 13th inactive, 64
     particles hanging off the low faces and 64 off the high ones), the same

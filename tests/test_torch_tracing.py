@@ -120,6 +120,8 @@ def test_span_stamps_share_the_profilers_clock():
     events = {e.name(): e for e in _pixie_events(prof)}
     starts, ends = [], []
     for name, _, s, e in t.records[5:]:              # the first ranges warm the profiler up
+        if name == "python.gc":                      # a collection opens no profiler range
+            continue
         ev = events[f"pixie.{name}"]
         assert ev.start_ns() - CLOCK_NS <= s <= e <= ev.end_ns() + CLOCK_NS, name
         starts.append(s - ev.start_ns())
