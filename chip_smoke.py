@@ -24,29 +24,27 @@ Phases (any failure exits non-zero):
                 same shapes (ids 0, 1, 2, 3, 5, 6, yielding, damaged,
                 inactive and off-face particles) in three particle orders
                 (as given, sorted by cell, sorted then drifted by 100 fused
-                substeps), each with its mean run length and timed without
-                its splat; the mean run length of a kept cell order at
+                substeps), each with its mean run length and its time; the
+                mean run length of a kept cell order at
                 substeps 1, 100 and 399 of a fused frame; the constitutive
                 pass (B7) vs its plain version on that mixed state (every
                 return-map branch) and on config 5 at 500k particles with a
                 strained F, by B6's criterion on F, stress, mu, lam and the
-                yield stress, the input state untouched, both layouts of its
-                row accesses timed in turns beside the plain pass and the
-                bound, and the ptxas reports of B7 and B6; a torch.profiler
+                yield stress, the input state untouched, its time beside
+                the plain pass and the bound, and the ptxas reports of B7
+                and B6; a torch.profiler
                 count of launches, wall and device time a substep, unfused
                 (the frame's state in a cell order and in the caller's, in
                 turns) and fused; the tile blend (B3, tile_cap 512)
                 and its backward (B4, tile_cap 1024, a seeded cotangent)
                 vs their plain versions at the render's shapes (~100k
                 seeded gaussians at 800x800, the tree config's camera),
-                with timings and B4's peak device memory, and B4's
-                ablation: without its per-entry reduction, and with a first
-                walk in place of the forward's state; B3 at both tile_caps,
-                with and without that state, bitwise against its ablation
-                without per-warp lists, timed with its ablations (no lists;
-                the gate alone), with the share of (warp, entry) pairs its
-                lists keep and its power bit-equal to the plain order of
-                operations
+                with timings and B4's peak device memory; B3 at B4's shapes
+                timed with and without the forward's state; B3 at both
+                tile_caps, with and without that state, bitwise against its
+                mode without per-warp lists, with the share of (warp,
+                entry) pairs its lists keep and its power bit-equal to the
+                plain order of operations
   4. probes   — the probe entry points pixie_tpu_torch.scripts.
                 probe_kernel_ablation (P1: four P2G variants x two particle
                 orders, 100k particles, n_grid 50) and probe_vmem_gather (P2:
@@ -830,8 +828,7 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
     """B6 against fused_substep_plain on one substep of _fused_state, its
     particles in three orders: as given, sorted by cell, and sorted by cell
     at substep 0 of a fused frame, then drifted by its first 100 substeps;
-    each timed with and without the splat, in the same call; the mean run
-    length over a fused frame."""
+    each timed; the mean run length over a fused frame."""
     import torch
 
     from pixie_tpu_torch.ops import fused_substep as fs
@@ -860,20 +857,13 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
         # the drifted state's snow has already damaged: that branch is spent
         err = max(err, _check_fused(out_k, grid_k, out_p, grid_p, s0.mu, label,
                                     every_branch=s0 is st))
-        row = {"run_length": fs.mean_run_length(s0.x, active, cfg)}
-        for sched in ("run_sums", "nosplat", "run_sums (again)"):
-            row[sched] = cuda_ms(lambda s, m=sched.split()[0], a=active: fs.fused_substep_variant(
-                m, s, grid_v, cfg, DT, a), setup=lambda: (fresh(),))
+        row = {"run_length": fs.mean_run_length(s0.x, active, cfg),
+               "ms": cuda_ms(lambda s, a=active: fs.fused_substep(s, grid_v, cfg, DT, a),
+                             setup=lambda: (fresh(),))}
         per_order[label] = row
-        print(f"fused_substep ({label}): mean run length {row['run_length']:.3f}; ms (median of 30 "
-              f"CUDA-event timings): " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
-                                                   if k != "run_length"), flush=True)
-    shipped = per_order["cell-sorted"]["run_sums"]
-    g, c = per_order["given"], per_order["cell-sorted"]
-    print(f"B6 attribution: shipped in a cell order {shipped:.4f} ms; splat ~ run_sums - nosplat: "
-          f"cell-sorted {c['run_sums'] - c['nosplat']:.4f}, given "
-          f"{g['run_sums'] - g['nosplat']:.4f} ms; the gather and constitutive math (nosplat) "
-          f"given {g['nosplat']:.4f} against cell-sorted {c['nosplat']:.4f} ms", flush=True)
+        print(f"fused_substep ({label}): mean run length {row['run_length']:.3f}; "
+              f"{row['ms']:.4f} ms (median of 30 CUDA-event timings)", flush=True)
+    shipped = per_order["cell-sorted"]["ms"]
 
     def fresh_given():
         return st.replace(**{k: getattr(st, k).clone() for k in fs.UPDATED_FIELDS})
@@ -906,8 +896,7 @@ def phase_fused(dev, n: int = N_PARTICLES, n_grid: int = N_GRID) -> dict:
 # fused_substep_kernel's ptxas report before its phase 3 became mpm.cuh's
 # constitutive_update, shared with B7: fused_substep.cu as it was then, built
 # with ops/build.py's NVCC_FLAGS for an NVIDIA H100 80GB HBM3 (PERF.md)
-B6_PTXAS_BEFORE = ("kRunSums 96 registers, 0 bytes spill stores, 0 bytes spill loads; "
-                   "kNoSplat 72 registers, no spill")
+B6_PTXAS_BEFORE = "96 registers, 0 bytes spill stores, 0 bytes spill loads"
 B7_N = 500_000   # config 5's particles, as the benchmark's scene cells run it
 
 
@@ -952,10 +941,9 @@ def phase_constitutive(dev) -> dict:
     _check_fused: on the slice's 100k mixed state (_fused_state: ids 0, 1,
     2, 3, 5, 6 interleaved, every return-map branch) and on config 5 at
     500k particles with a strained F_trial (_config5_strained); the input
-    state untouched; both layouts of the 36-byte rows (one thread a row,
-    staged through shared memory) timed in turns on each state, device time
-    behind a sleep kernel (scripts/timing.py), against the plain pass and
-    the bound; the ptxas reports of B7 and of B6, whose phase 3 it shares."""
+    state untouched; B7 timed on each state, device time behind a sleep
+    kernel (scripts/timing.py), against the plain pass and the bound; the
+    ptxas reports of B7 and of B6, whose phase 3 it shares."""
     import torch
 
     from pixie_tpu_torch.ops import constitutive as ops_const
@@ -977,32 +965,18 @@ def phase_constitutive(dev) -> dict:
         _check_stress_fields("constitutive", out_k, out_p, st.mu, label,
                              label.startswith("mixed"), e_max)
         err = max(err, float((out_k.F - out_p.F).abs().max()))
-        for layout in ops_const.LAYOUTS:
-            other = ops_const.constitutive_variant(layout, st, cfg, DT)
-            same = all(torch.equal(getattr(other, k), getattr(out_k, k))
-                       for k in ("F", "stress", "mu", "lam", "yield_stress"))
-            print(f"constitutive ({label}): layout {layout} bitwise equal to the shipped "
-                  f"{ops_const.SHIPPED}: {same}", flush=True)
-            if not same:
-                _check_stress_fields("constitutive", other, out_p, st.mu, f"{label}, {layout}",
-                                     False, e_max)
         if not all(torch.equal(getattr(st, k), t) for k, t in before.items()):
             fail(f"constitutive_pass wrote its input state ({label})")
-        row = {}
-        for layout in ("rows", "staged", "rows", "staged"):
-            ms = statistics.median(time_calls(
-                lambda lay=layout: ops_const.constitutive_variant(lay, st, cfg, DT), [()] * 30,
-                dev))
-            row.setdefault(layout, []).append(ms)
-        row = {k: min(v) for k, v in row.items()}
+        row = {"ms": min(statistics.median(time_calls(
+            lambda: ops_const.constitutive_pass(st, cfg, DT), [()] * 30, dev)) for _ in range(2))}
         row["around_call_ms"] = cuda_ms(lambda: ops_const.constitutive_pass(st, cfg, DT))
         row["plain_ms"] = cuda_ms(lambda: compute_stress_from_F_trial(st, cfg, DT), reps=5,
                                   warmup=1)
         row.update(_constitutive_bound(st, cfg))
         cases[label] = row
         print(f"constitutive ({label}, {st.n_particles} particles): device ms (the better of two "
-              f"turns, each the median of 30 behind a sleep kernel): rows {row['rows']:.4f}, "
-              f"staged {row['staged']:.4f}; around the call {row['around_call_ms']:.4f} ms; plain "
+              f"turns, each the median of 30 behind a sleep kernel): {row['ms']:.4f}; around "
+              f"the call {row['around_call_ms']:.4f} ms; plain "
               f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
               f"{row['MB']:.2f} MB, {row['Mflop']:.1f} Mflop)", flush=True)
         del st, out_p, out_k, before
@@ -1013,7 +987,7 @@ def phase_constitutive(dev) -> dict:
     for line in _ptxas("fused_substep"):
         print(f"fused_substep ptxas now: {line}")
     main_case = cases["config 5 500k"]
-    return {"max_abs_err": err, "ms": main_case[ops_const.SHIPPED],
+    return {"max_abs_err": err, "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None, "cases": cases}
 
@@ -1027,7 +1001,7 @@ def _unfused_frame_order(how: str):
 
     shipped = solver_mod._substep
     if how == "given":
-        solver_mod._substep = lambda *a: shipped(*a[:-1], False)
+        solver_mod._substep = lambda *a, **k: shipped(*a[:6], False, **k)
     try:
         yield
     finally:
@@ -1180,9 +1154,8 @@ def phase_blend(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES):
     print(f"gs_blend: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 30 CUDA-event "
           f"timings, {res}x{res}, tile_cap 512); bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})", flush=True)
-    ablation = _blend_ablation(bins, dev, 512)
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None,
-            "ablation_ms": ablation}
+            "lists": _blend_lists(bins, dev, 512)}
 
 
 def _power_bits_equal(bins, dev, n_tiles: int = 64) -> int:
@@ -1210,13 +1183,11 @@ def _power_bits_equal(bins, dev, n_tiles: int = 64) -> int:
     return pairs
 
 
-def _blend_ablation(bins, dev, tile_cap: int, bg: float = 0.0) -> dict:
-    """B3's schedules on one scene, with and without the state, in turns:
-    the shipped kernel (packed staging, per-warp entry lists, exact early
-    exit, half-tile blocks) and the ablations nolists and alpha; the shipped
-    kernel's img, T and state bit for bit against nolists' (the lists drop
-    no hit); the share of the (warp, entry) pairs the lists keep.  Returns
-    {mode: ms} a state."""
+def _blend_lists(bins, dev, tile_cap: int, bg: float = 0.0) -> dict:
+    """B3's per-warp entry lists on one scene: the shipped kernel's img, T
+    and state, with and without the state, bit for bit against its nolists
+    mode's (the lists drop no hit); the share of the (warp, entry) pairs
+    the lists keep; the scaled conic's power bit for bit."""
     import torch
 
     from pixie_tpu_torch.ops import gs_stream
@@ -1228,16 +1199,9 @@ def _blend_ablation(bins, dev, tile_cap: int, bg: float = 0.0) -> dict:
         full = gs_stream.blend_forward_variant("nolists", *args, keep)
         torch.cuda.synchronize()
         if not all((g is None and w is None) or torch.equal(g, w) for g, w in zip(ship, full)):
-            fail(f"B3 (state {keep}) is not bitwise equal to its nolists ablation")
-        ms = {}
-        for mode in ("shipped", "nolists", "alpha", "shipped (again)"):
-            ms[mode] = cuda_ms(lambda m=mode.split()[0]: gs_stream.blend_forward_variant(
-                m, *args, keep))
-        out["state" if keep else "no_state"] = ms
+            fail(f"B3 (state {keep}) is not bitwise equal to its nolists mode")
         print(f"B3 at tile_cap {tile_cap}, {'keeping' if keep else 'without'} the state: img, T"
-              f"{', state' if keep else ''} bitwise equal to nolists'; ms (median "
-              f"of 30 CUDA-event timings, in turns): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+              f"{', state' if keep else ''} bitwise equal to nolists'", flush=True)
     box = gs_stream.blend_box_plain(bins.feat)
     met = pairs = 0
     w = torch.arange(8, device=dev)                     # a warp's 8 x 4 pixel block
@@ -1320,13 +1284,6 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
     print("blend backward: max |plain| per column: " + " ".join(f"{v:.3e}" for v in scale.tolist()))
     if not all(r <= BWD_RTOL for r in rel) or not bool(torch.isfinite(d_k).all()):
         fail("gs blend backward kernel disagrees with its plain version")
-    # the pass1 ablation must still agree: the ablation below is read against it
-    prev = gs_stream.blend_backward_variant("pass1", *args, state)
-    rel_prev = ((prev - d_p).abs().max(0).values / scale).tolist()
-    print("blend backward (pass1): per-column max_abs_err / max |plain|: "
-          + " ".join(f"{r:.2e}" for r in rel_prev))
-    if not all(r <= BWD_RTOL for r in rel_prev):
-        fail("the pass1 blend backward disagrees with its plain version")
     k_ms = cuda_ms(lambda: kernel(*args))
     p_ms = cuda_ms(lambda: gs_stream.blend_backward_plain(*args), reps=5, warmup=1)
     # one walk; reads d img, d trans (16 B a pixel) and the forward's state
@@ -1340,35 +1297,20 @@ def phase_blend_backward(dev, n_gaussians: int = N_GAUSSIANS, res: int = RES,
           f"pixels whose T reaches 0: {opaque:.4f}); peak device "
           f"memory above the inputs: kernel {peaks[0]:.1f} MiB, plain {peaks[1]:.1f} MiB",
           flush=True)
-    # the ablation and the forward that feeds the state, against the shipped
-    # kernel, in turns
-    ablation = {"shipped": k_ms}
-    for mode in gs_stream.BWD_MODES:
-        ablation[mode] = cuda_ms(lambda m=mode: gs_stream.blend_backward_variant(m, *args,
-                                                                                 state))
-    ablation["shipped (again)"] = cuda_ms(lambda: kernel(*args))
+    # the forward that feeds the state, with and without it
     fwd = {"no_state": cuda_ms(lambda: gs_stream.blend_forward(*args[:6])),
            "keep_state": cuda_ms(lambda: gs_stream.blend_forward(*args[:6], keep_state=True))}
-    fwd["no_state (again)"] = cuda_ms(lambda: gs_stream.blend_forward(*args[:6]))
     # B3 as a training step runs it: its bound (one walk; img, T and the
-    # state written, 48 B a pixel) and its schedules at these shapes
+    # state written, 48 B a pixel) and its lists at these shapes
     fwd["bound"] = _blend_bound(bins, pixel_bytes=48, out_bytes=0)
-    fwd["ablation"] = _blend_ablation(bins, dev, tile_cap, bg=0.3)
+    fwd["lists"] = _blend_lists(bins, dev, tile_cap, bg=0.3)
     print(f"B3 keeping the state at tile_cap {tile_cap}: bound {fwd['bound']['bound_ms']:.4f} ms "
           f"({fwd['bound']['bound_by']})", flush=True)
-    print("gs_blend_backward ablation, ms (median of 30 CUDA-event timings, same inputs): "
-          + ", ".join(f"{m} {t:.4f}" for m, t in ablation.items()), flush=True)
-    a = ablation
-    print(f"B4 attribution: {k_ms:.4f} ms; per-entry reduction ~ shipped - noreduce = "
-          f"{k_ms - a['noreduce']:.4f} ms; pass 1 replaced by the forward's state ~ pass1 - "
-          f"shipped = {a['pass1'] - k_ms:.4f} ms", flush=True)
-    print(f"B3 at B4's shapes (tile_cap {tile_cap}), ms: without the state {fwd['no_state']:.4f} "
-          f"/ {fwd['no_state (again)']:.4f}, keeping it (as training runs it) "
-          f"{fwd['keep_state']:.4f}; a training step's pair: forward with state + backward "
-          f"{fwd['keep_state'] + k_ms:.4f} against forward without state + pass1 backward "
-          f"{fwd['no_state'] + a['pass1']:.4f}", flush=True)
+    print(f"B3 at B4's shapes (tile_cap {tile_cap}), ms: without the state {fwd['no_state']:.4f}, "
+          f"keeping it (as training runs it) {fwd['keep_state']:.4f}; a training step's pair: "
+          f"forward with state + backward {fwd['keep_state'] + k_ms:.4f}", flush=True)
     return {"max_abs_err": float(err.max()), "ms": k_ms, "plain_ms": p_ms, **b,
-            "library_ms": None, "ablation_ms": ablation, "forward_ms": fwd}
+            "library_ms": None, "forward_ms": fwd}
 
 
 def phase_probes(dev, b1_ms: float | None = None, n: int = N_PARTICLES, t: int = 8192,

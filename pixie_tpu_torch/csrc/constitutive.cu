@@ -39,21 +39,17 @@
 // caller's order; config 5's materials fill separate boxes and a ball, so in
 // either order most warps hold one material and run one branch.
 //
-// The (N, 3, 3) arrays are 36-byte rows.  Two layouts of the row accesses
-// (template flag; ops/constitutive.py LAYOUTS): kRows, each thread loads
-// and stores its own rows (9 strided 4-byte accesses a matrix, neighbouring
-// threads 36 bytes apart); kStaged, the block's F_trial rows are copied into
-// shared memory with 16-byte coalesced loads and its F and stress rows
-// leave through shared memory with 16-byte coalesced stores (4-byte ones
-// where an array is not 16-byte aligned).  Both write the same values, bit
-// for bit.  Device time (median of 30 behind a sleep kernel, the better of
-// two turns; one chip_smoke.py run, NVIDIA H100 80GB HBM3, 700 W): config
-// 5's 500k particles in their material blocks, rows 0.1294 ms, staged
-// 0.1081 ms (the plain pass 31.6 ms); the slice's 100k particles with six
-// materials interleaved, so that every warp diverges, rows 0.0340, staged
-// 0.0333 ms.  kStaged ships; kRows stays as the ablation chip_smoke.py
-// times.  ptxas: 54 registers (kStaged, 9216 B of shared memory) and 55
-// (kRows), no spill.
+// The (N, 3, 3) arrays are 36-byte rows: the block's F_trial rows are
+// copied into shared memory with 16-byte coalesced loads and its F and
+// stress rows leave through shared memory with 16-byte coalesced stores
+// (4-byte ones where an array is not 16-byte aligned).  Device time (median
+// of 30 behind a sleep kernel, the better of two turns; one chip_smoke.py
+// run, NVIDIA H100 80GB HBM3, 700 W): config 5's 500k particles in their
+// material blocks 0.1081 ms (the plain pass 31.6 ms); the slice's 100k
+// particles with six materials interleaved, so that every warp diverges,
+// 0.0333 ms.  Loading and storing each thread's own rows, 9 strided 4-byte
+// accesses a matrix, took 0.1294 and 0.0340 ms.  ptxas: 54 registers,
+// 9216 B of shared memory, no spill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +60,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kRow = 9;  // floats of one particle's 3x3 matrix
-enum Layout : int { kRows = 0, kStaged = 1 };
 
 // count floats from src to dst, the block's threads on neighbouring
 // addresses: 16 bytes a thread where both ends are 16-byte aligned
@@ -80,7 +75,6 @@ __device__ __forceinline__ void block_copy(float* __restrict__ dst,
   for (int i = done + threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
 }
 
-template <int kLayout>
 __global__ void __launch_bounds__(kThreads)
 constitutive_kernel(const float* __restrict__ F_trial, const float* __restrict__ F,
                     const float* __restrict__ stress, const float* __restrict__ mu_in,
@@ -96,25 +90,19 @@ constitutive_kernel(const float* __restrict__ F_trial, const float* __restrict__
   const int64_t row = static_cast<int64_t>(p) * kRow;
   const int64_t first_row = static_cast<int64_t>(first) * kRow;
   float ft[kRow], fn[kRow], st[kRow];
-  // kStaged: the block's rows of F_trial in, then of F and stress out
-  __shared__ __align__(16) float s_f[kLayout == kStaged ? kThreads * kRow : 1];
-  __shared__ __align__(16) float s_st[kLayout == kStaged ? kThreads * kRow : 1];
+  // the block's rows of F_trial in, then of F and stress out
+  __shared__ __align__(16) float s_f[kThreads * kRow];
+  __shared__ __align__(16) float s_st[kThreads * kRow];
   const int rows = min(kThreads, n - first);
-  if constexpr (kLayout == kStaged) {
-    block_copy(s_f, F_trial + first_row, rows * kRow);
-    __syncthreads();
-    if (in) {
+  block_copy(s_f, F_trial + first_row, rows * kRow);
+  __syncthreads();
+  if (in) {
 #pragma unroll
-      for (int k = 0; k < kRow; ++k) ft[k] = s_f[kRow * threadIdx.x + k];
-    }
-    __syncthreads();  // s_f takes the returned F below
+    for (int k = 0; k < kRow; ++k) ft[k] = s_f[kRow * threadIdx.x + k];
   }
+  __syncthreads();  // s_f takes the returned F below
   if (in) {
     if (selection[p] == 0) {
-      if constexpr (kLayout == kRows) {
-#pragma unroll
-        for (int k = 0; k < kRow; ++k) ft[k] = F_trial[row + k];
-      }
       float mu = mu_in[p], lam = lam_in[p], ys = ys_in[p];
       pixie::constitutive_update(ft, material[p], mu, lam, ys, bulk + p, prm, fn, st);
       mu_out[p] = mu;
@@ -132,29 +120,20 @@ constitutive_kernel(const float* __restrict__ F_trial, const float* __restrict__
     }
 #pragma unroll
     for (int k = 0; k < kRow; ++k) {
-      if constexpr (kLayout == kRows) {
-        F_out[row + k] = fn[k];
-        stress_out[row + k] = st[k];
-      } else {
-        s_f[kRow * threadIdx.x + k] = fn[k];
-        s_st[kRow * threadIdx.x + k] = st[k];
-      }
+      s_f[kRow * threadIdx.x + k] = fn[k];
+      s_st[kRow * threadIdx.x + k] = st[k];
     }
   }
-  if constexpr (kLayout == kStaged) {
-    __syncthreads();
-    block_copy(F_out + first_row, s_f, rows * kRow);
-    block_copy(stress_out + first_row, s_st, rows * kRow);
-  }
+  __syncthreads();
+  block_copy(F_out + first_row, s_f, rows * kRow);
+  block_copy(stress_out + first_row, s_st, rows * kRow);
 }
 
 }  // namespace
 
 extern "C" {
 
-// layout 0 is one thread a row (kRows), 1 the rows staged through shared
-// memory (kStaged)
-int pixie_constitutive(int layout, const float* F_trial, const float* F, const float* stress,
+int pixie_constitutive(const float* F_trial, const float* F, const float* stress,
                        const float* mu, const float* lam, const float* yield_stress,
                        const int32_t* material, const float* bulk, const int32_t* selection,
                        float* F_out, float* stress_out, float* mu_out, float* lam_out,
@@ -164,19 +143,10 @@ int pixie_constitutive(int layout, const float* F_trial, const float* F, const f
   if (n > 0) {
     const pixie::Plasticity prm{dt, hardening, xi, alpha, plastic_viscosity, softening,
                                 active_materials};
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int blocks = (n + kThreads - 1) / kThreads;
-#define PIXIE_CONSTITUTIVE_LAUNCH(L)                                                        \
-  constitutive_kernel<L><<<blocks, kThreads, 0, s>>>(F_trial, F, stress, mu, lam,          \
-                                                     yield_stress, material, bulk, selection, \
-                                                     F_out, stress_out, mu_out, lam_out,     \
-                                                     ys_out, n, prm)
-    switch (layout) {
-      case kRows: PIXIE_CONSTITUTIVE_LAUNCH(kRows); break;
-      case kStaged: PIXIE_CONSTITUTIVE_LAUNCH(kStaged); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef PIXIE_CONSTITUTIVE_LAUNCH
+    constitutive_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        F_trial, F, stress, mu, lam, yield_stress, material, bulk, selection, F_out,
+        stress_out, mu_out, lam_out, ys_out, n, prm);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,9 +55,7 @@
 // one-thread-per-particle splat that P1's `full` timed before P1 moved onto
 // B1's schedule), 95 % of that splat's time by P1's ablation; in the given order that kernel took 0.2640-0.3668 ms against
 // 0.1416-0.2303 for the run sums in a cell order (PERF.md), and it was
-// then deleted.  Schedules (template flag): kRunSums, shipped; kNoSplat,
-// phases 1-3 alone, which prices the gather and the constitutive math apart
-// from the splat (chip_smoke.py times it; no path of the port calls it).
+// then deleted.
 //
 // Not carried over from the TPU kernel: its tile-sorted particle blocks, the
 // (48, NB*128) row packing of the carried state, the one-hot window factors
@@ -90,7 +88,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-enum Schedule : int { kRunSums = 0, kNoSplat = 1 };
 
 struct Params {
   int n, n_grid;
@@ -100,7 +97,6 @@ struct Params {
   int update_cov;
 };
 
-template <int kSched>
 __global__ void __launch_bounds__(kThreads)
 fused_substep_kernel(float* __restrict__ x, float* __restrict__ v, float* __restrict__ C,
                      float* __restrict__ F, float* __restrict__ F_trial,
@@ -114,11 +110,7 @@ fused_substep_kernel(float* __restrict__ x, float* __restrict__ v, float* __rest
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool live = p < prm.n && active[p];
-  if constexpr (kSched == kRunSums) {
-    if (!__any_sync(pixie::kFullMask, live)) return;  // the whole warp: no run to form
-  } else {
-    if (!live) return;
-  }
+  if (!__any_sync(pixie::kFullMask, live)) return;  // the whole warp: no run to form
   const int n_grid = prm.n_grid;
   const float dt = prm.pl.dt, inv_dx = prm.inv_dx, dx = prm.dx;
   // what the splat reads: x(s+1), v, the damped C, the mass and -vol dt stress
@@ -245,7 +237,6 @@ fused_substep_kernel(float* __restrict__ x, float* __restrict__ v, float* __rest
     pixie::damp_C(c, prm.rpic_damping);
     m = mass[p];
   }
-  if constexpr (kSched == kNoSplat) return;
 
   // ---- 4. P2G(s+1) at x(s+1) ---------------------------------------------
   const pixie::Spline s = pixie::spline_weights(xp, inv_dx);
@@ -261,31 +252,22 @@ fused_substep_kernel(float* __restrict__ x, float* __restrict__ v, float* __rest
 
 extern "C" {
 
-// schedule 0 is the shipped kernel (run sums), 1 the substep without its
-// splat
-int pixie_fused_substep(int schedule, float* x, float* v, float* C, float* F, float* F_trial,
+int pixie_fused_substep(float* x, float* v, float* C, float* F, float* F_trial,
                         float* stress, float* mu, float* lam, float* yield_stress, float* cov,
                         const float* mass, const float* vol, const int32_t* material,
-                        const float* bulk, const uint8_t* active, const float* grid_v, float* grid_next, int n, int n_grid, float dx,
-                        float inv_dx, float dt, float hardening, float xi, float alpha,
-                        float plastic_viscosity, float softening, float rpic_damping,
-                        int update_cov, int active_materials, void* stream) {
+                        const float* bulk, const uint8_t* active, const float* grid_v,
+                        float* grid_next, int n, int n_grid, float dx, float inv_dx, float dt,
+                        float hardening, float xi, float alpha, float plastic_viscosity,
+                        float softening, float rpic_damping, int update_cov,
+                        int active_materials, void* stream) {
   if (n > 0) {
     const Params prm{n, n_grid, dx, inv_dx,
                      {dt, hardening, xi, alpha, plastic_viscosity, softening, active_materials},
                      rpic_damping, update_cov};
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int blocks = (n + kThreads - 1) / kThreads;
-#define PIXIE_FUSED_LAUNCH(S)                                                                   \
-  fused_substep_kernel<S><<<blocks, kThreads, 0, s>>>(x, v, C, F, F_trial, stress, mu, lam,     \
-                                                      yield_stress, cov, mass, vol, material,  \
-                                                      bulk, active, grid_v, grid_next, prm)
-    switch (schedule) {
-      case kRunSums: PIXIE_FUSED_LAUNCH(kRunSums); break;
-      case kNoSplat: PIXIE_FUSED_LAUNCH(kNoSplat); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef PIXIE_FUSED_LAUNCH
+    fused_substep_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, v, C, F, F_trial, stress, mu, lam, yield_stress, cov, mass, vol, material, bulk,
+        active, grid_v, grid_next, prm);
   }
   return static_cast<int>(cudaGetLastError());
 }

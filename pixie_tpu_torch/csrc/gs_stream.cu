@@ -17,10 +17,10 @@
 //   counts  (T,)    entries blended for tile t (already capped at tile_cap)
 //
 // Design: the reference rasterizer's shape (forward.cu renderCUDA), one
-// thread per pixel, here two blocks a tile, each on 8 of its 16 rows (kSplit,
-// kRows).  At 800x800 only ~800 of 2500 tiles hold entries, all in one wave
-// of blocks, so the busiest SM sets the time: half tiles share the work out
-// more evenly (quarter tiles did no better).  A block walks its tile's
+// thread per pixel, here two blocks a tile, each on 8 of its 16 rows
+// (kSplit, kPartRows).  At 800x800 only ~800 of 2500 tiles hold entries, all
+// in one wave of blocks, so the busiest SM sets the time: half tiles share
+// the work out more evenly (quarter tiles did no better).  A block walks its tile's
 // entries in batches of one entry a thread, each thread staging one into
 // shared memory, and every thread composites the batch in order in
 // registers.  Three things keep a thread's work per (pixel, entry) pair
@@ -57,9 +57,8 @@
 // staged as 9 scalar floats, no lists, no early exit) took 0.4761-0.5531 ms
 // against this kernel's 0.2814-0.3415 at tile_cap 1024 keeping the state,
 // with img, T and state bit for bit the same (PERF.md); it was then
-// deleted.  The modes `nolists` (1, no per-warp lists, one gate at a time)
-// and `alpha` (2, the gate of every pair and no compositing) price the
-// parts; chip_smoke.py times them, and no path of the port calls them.
+// deleted.  The mode `nolists` (1, no per-warp lists, one gate at a time)
+// is the tests' bitwise reference that the lists drop no hit.
 //
 // The TPU kernel forms the exclusive transmittance of a 128-splat chunk as
 // a matmul of log(1 - alpha) with a triangular matrix, which puts the scan
@@ -140,11 +139,12 @@ __device__ __forceinline__ float4 blend_box(float mx, float my, float c0, float 
   return make_float4(mx - hx, mx + hx, my - hy, my + hy);
 }
 
-enum BlendMode : int { kBlendShipped = 0, kBlendNoLists = 1, kBlendAlpha = 2 };
+// kBlendNoLists: the tests' bitwise reference that the lists drop no hit
+enum BlendMode : int { kBlendShipped = 0, kBlendNoLists = 1 };
 
-// blend_kernel: kSplit blocks a tile, each on kRows of its rows, kThreadsB
+// blend_kernel: kSplit blocks a tile, each on kPartRows of its rows, kThreadsB
 // threads (a warp an 8 x 4 block of pixels)
-constexpr int kSplit = 2, kRows = kTile / kSplit, kThreadsB = kTile * kRows;
+constexpr int kSplit = 2, kPartRows = kTile / kSplit, kThreadsB = kTile * kPartRows;
 
 template <bool kState, int kMode>
 __global__ void __launch_bounds__(kThreadsB)
@@ -159,14 +159,14 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
   __shared__ float2 s_geo2[kThreadsB];  // -c2/2, op
   __shared__ float4 s_box[kThreadsB];   // x0, x1, y0, y1 (kLists)
   __shared__ Colour s_col[3][kThreadsB];
-  // block b takes rows kRows (b % kSplit) .. + kRows - 1 of tile b / kSplit
+  // block b takes rows kPartRows (b % kSplit) .. + kPartRows - 1 of tile b / kSplit
   const int part = blockIdx.x % kSplit;
   const int t = blockIdx.x / kSplit;
   const int i = threadIdx.x;
   const int lane = i & 31, warp = i >> 5;
   // a warp takes an 8 x 4 block of the tile's pixels (the lists' rectangle)
   const int x0 = (t % tx_n) * kTile + (warp & 1) * 8;
-  const int y0 = (t / tx_n) * kTile + part * kRows + (warp >> 1) * 4;
+  const int y0 = (t / tx_n) * kTile + part * kPartRows + (warp >> 1) * 4;
   const int x = x0 + (lane & 7);
   const int y = y0 + (lane >> 3);
   const float px = static_cast<float>(x) + 0.5f;
@@ -176,7 +176,7 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
 
   const int start = starts[t];
   const int count = (start < 0 || start > n_idx) ? 0 : max(0, min(counts[t], n_idx - start));
-  float T = 1.0f, acc = 0.0f;
+  float T = 1.0f;
   Colour cr = 0, cg = 0, cb = 0;
 
   // the pair (this pixel, staged entry j): alpha, or 0 where the gate fails
@@ -208,11 +208,7 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
   };
 
   for (int base = 0; base < count; base += kThreadsB) {
-    if constexpr (kMode != kBlendAlpha) {
-      if (!__syncthreads_or(T != 0.0f)) break;  // every pixel opaque: nothing more to add
-    } else {
-      __syncthreads();  // the previous batch has been consumed
-    }
+    if (!__syncthreads_or(T != 0.0f)) break;  // every pixel opaque: nothing more to add
     const int m = min(kThreadsB, count - base);
     if (i < m) {
       const int g = idx[start + base + i];
@@ -229,39 +225,35 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
       if constexpr (kLists) s_box[i] = blend_box(f[0], f[1], f[2], f[3], f[4], f[8]);
     }
     __syncthreads();
-    if constexpr (kMode == kBlendAlpha) {
-      for (int j = 0; j < m; ++j) acc += gate(j);
-    } else {
-      if (__all_sync(kFull, T == 0.0f)) continue;  // this warp adds nothing more
-      if constexpr (kLists) {
-        for (int c = 0; c < m; c += 32) {
-          const int jl = c + lane;
-          bool meets = false;
-          if (jl < m) {
-            const float4 bx = s_box[jl];
-            meets = bx.x <= wx1 && bx.y >= wx0 && bx.z <= wy1 && bx.w >= wy0;
-          }
-          // two gates in flight, then the two blends in order
-          for (unsigned list = __ballot_sync(kFull, meets); list != 0u;) {
-            const int j0 = c + __ffs(list) - 1;
+    if (__all_sync(kFull, T == 0.0f)) continue;  // this warp adds nothing more
+    if constexpr (kLists) {
+      for (int c = 0; c < m; c += 32) {
+        const int jl = c + lane;
+        bool meets = false;
+        if (jl < m) {
+          const float4 bx = s_box[jl];
+          meets = bx.x <= wx1 && bx.y >= wx0 && bx.z <= wy1 && bx.w >= wy0;
+        }
+        // two gates in flight, then the two blends in order
+        for (unsigned list = __ballot_sync(kFull, meets); list != 0u;) {
+          const int j0 = c + __ffs(list) - 1;
+          list &= list - 1u;
+          if (list != 0u) {
+            const int j1 = c + __ffs(list) - 1;
             list &= list - 1u;
-            if (list != 0u) {
-              const int j1 = c + __ffs(list) - 1;
-              list &= list - 1u;
-              const float a0 = gate(j0), a1 = gate(j1);
-              if (a0 != 0.0f) blend(j0, a0);
-              if (a1 != 0.0f) blend(j1, a1);
-            } else {
-              const float a0 = gate(j0);
-              if (a0 != 0.0f) blend(j0, a0);
-            }
+            const float a0 = gate(j0), a1 = gate(j1);
+            if (a0 != 0.0f) blend(j0, a0);
+            if (a1 != 0.0f) blend(j1, a1);
+          } else {
+            const float a0 = gate(j0);
+            if (a0 != 0.0f) blend(j0, a0);
           }
         }
-      } else {
-        for (int j = 0; j < m; ++j) {
-          const float alpha = gate(j);
-          if (alpha != 0.0f) blend(j, alpha);
-        }
+      }
+    } else {
+      for (int j = 0; j < m; ++j) {
+        const float alpha = gate(j);
+        if (alpha != 0.0f) blend(j, alpha);
       }
     }
   }
@@ -282,7 +274,6 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
     fg = cg;
     fb = cb;
   }
-  if constexpr (kMode == kBlendAlpha) fr = acc;  // keeps the gate's work live
   img[3 * p + 0] = fr + bg * T;
   img[3 * p + 1] = fg + bg * T;
   img[3 * p + 2] = fb + bg * T;
@@ -309,7 +300,8 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
 // underflows to 0 in float32 after ~20 splats at alpha 0.99 and can then no
 // longer be divided back.  So the block walks its entries front to back,
 // recomputing T_j as the same running product as the forward, and forms
-// the suffix sum_{k>j} w_k v_k as a total minus a running prefix.  power
+// the suffix sum_{k>j} w_k v_k from the forward's colour sums minus a
+// running prefix (step 2 below).  power
 // and alpha are rounded op by op as in blend_kernel, so every
 // "alpha >= 1/255" gate falls as it did in the forward.
 //
@@ -323,7 +315,7 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
 // __shfl_xor_sync for each of the 9 terms (45) and 8 per-warp partials per
 // entry in 37 KB of shared memory, and no early exit.  Without its
 // reduction it took 1.069 ms, without pass 1 1.123 ms.  Two steps, each
-// aimed at one of the two:
+// aimed at one of the two (the ablations that priced them are deleted):
 //   1. the reduction: a reduce-scatter, four halving exchanges (5, 3, 2 and
 //      1 shuffles) that leave each pair of lanes one of the 9 terms summed
 //      over 16 lanes, and a last exchange: 12 shuffles for the 45.  The 9
@@ -331,16 +323,16 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
 //      shared memory with float atomics (compare-and-swap loops on sm_90;
 //      4.6 KB for 37 KB, no block-wide sum of partials); after each batch
 //      of 128 entries the block adds each nonzero sum into d feat with one
-//      float atomicAdd per (entry, term).  With it (the `pass1` ablation)
-//      the kernel took 1.286 ms, of which the reduction 0.184 and pass 1
+//      float atomicAdd per (entry, term).  With it, and still pass 1, the
+//      kernel took 1.286 ms, of which the reduction 0.184 and pass 1
 //      0.500.
 //   2. pass 1: the forward (blend_kernel<true>, in training) keeps each
 //      pixel's colour before the background, summed in double, and its
-//      T_final (state, 32 B a pixel), and pass 2 forms the suffix as
+//      T_final (state, 32 B a pixel), and the one walk forms the suffix as
 //      sum_c dC_c (colour_c - prefix_c), prefix_c the same double sums of
 //      the same exact products w c_c in the same order: as exact as pass
-//      1's double S - prefix, and exactly 0 after a pixel's last hit.  The
-//      forward pays for the double sums and the state's writes; chip_smoke.py
+//      1's double S - prefix was, and exactly 0 after a pixel's last hit.
+//      The forward pays for the double sums and the state's writes; chip_smoke.py
 //      times it beside the plain forward.  (The colour in float, 16 B a
 //      pixel, held the tolerance with a 2x margin on the smoke scene, 4.9e-6
 //      of a column for 1e-5: too little.)  tests/test_torch_train.py holds
@@ -353,16 +345,9 @@ blend_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
 // reference's T < 1e-4 stop this changes no result.
 // The atomics make the sums depend on block and warp order: hold the kernel
 // to its plain version at a tolerance, not bit for bit.
-//
-// Ablation modes (template flags; chip_smoke.py times them, no path of the
-// port calls them): kBwdNoReduce, each thread sums its terms over all
-// entries in registers and stores them once into out (pixels, 9), which
-// prices the per-entry reduction; kBwdPass1, S (in double) and T_final from
-// a first walk instead of the forward's state, which prices the state.
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdBatch = 128;          // entries per shared-memory batch
-constexpr int kBwdNoReduce = 2, kBwdPass1 = 4;
 
 struct SplatGeom {
   float dx, dy, power, e, alpha;
@@ -382,7 +367,7 @@ __device__ __forceinline__ SplatGeom splat_geom(float (*s)[kBwdBatch], int j,
   return r;
 }
 
-// c_j . dC, rounded op by op so that both passes get the same float
+// c_j . dC, rounded op by op
 __device__ __forceinline__ float color_dot(float (*s)[kBwdBatch], int j, float dr,
                                            float dg, float db) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dr, s[5][j]), __fmul_rn(dg, s[6][j])),
@@ -438,16 +423,12 @@ __device__ __forceinline__ float reduce_scatter9(const float (&v)[kFeat], int la
   return sum;
 }
 
-template <int kMode>
 __global__ void __launch_bounds__(kPix)
 blend_backward_kernel(const float* __restrict__ feat, const int32_t* __restrict__ idx,
                       const int32_t* __restrict__ starts, const int32_t* __restrict__ counts,
                       int n_feat, int n_idx, int tx_n, int width, float bg,
                       const float* __restrict__ d_img, const float* __restrict__ d_trans,
-                      const double* __restrict__ state, float* __restrict__ d_feat,
-                      float* __restrict__ out) {
-  constexpr bool kNoReduce = kMode & kBwdNoReduce;
-  constexpr bool kPass1 = kMode & kBwdPass1;
+                      const double* __restrict__ state, float* __restrict__ d_feat) {
   __shared__ float s[kFeat][kBwdBatch];
   __shared__ int sg[kBwdBatch];
   __shared__ float red[kBwdBatch * kFeat];  // the batch's per-entry sums
@@ -466,40 +447,12 @@ blend_backward_kernel(const float* __restrict__ feat, const int32_t* __restrict_
   const int count = (start < 0 || start > n_idx) ? 0 : max(0, min(counts[t], n_idx - start));
   for (int q = i; q < kBwdBatch * kFeat; q += kPix) red[q] = 0.0f;
 
-  // T_final and S = sum_k w_k v_k: from the forward's state or (kPass1)
-  // from a first walk
-  float T = 1.0f;
-  double S = 0.0;
-  double fr = 0.0, fg = 0.0, fb = 0.0;  // the forward's colour sums
-  if constexpr (!kPass1) {
-    fr = state[4 * p + 0];
-    fg = state[4 * p + 1];
-    fb = state[4 * p + 2];
-    T = static_cast<float>(state[4 * p + 3]);
-  } else {
-    for (int base = 0; base < count; base += kBwdBatch) {
-      if (!__syncthreads_or(T != 0.0f)) break;  // every pixel opaque: S is final
-      const int m = min(kBwdBatch, count - base);
-      load_batch(s, sg, feat, idx, n_feat, start + base, m, i);
-      if (__all_sync(kFull, T == 0.0f)) continue;
-      for (int j = 0; j < m; ++j) {
-        const SplatGeom gm = splat_geom(s, j, px, py);
-        if (!(gm.alpha >= kAlphaMin)) continue;
-        const float w = gm.alpha * T;
-        S += static_cast<double>(w) * static_cast<double>(color_dot(s, j, dr, dg, db));
-        T *= 1.0f - gm.alpha;
-      }
-    }
-  }
-  const float dTT = dT * T;
+  // the forward's colour sums and T_final
+  const double fr = state[4 * p + 0], fg = state[4 * p + 1], fb = state[4 * p + 2];
+  const float dTT = dT * static_cast<float>(state[4 * p + 3]);
 
-  // pass 2: per-entry gradients
-  T = 1.0f;
-  double prefix = 0.0;
+  float T = 1.0f;
   double pr = 0.0, pg = 0.0, pb = 0.0;  // the forward's colour sums, repeated
-  float total[kFeat];  // kNoReduce
-#pragma unroll
-  for (int k = 0; k < kFeat; ++k) total[k] = 0.0f;
   for (int base = 0; base < count; base += kBwdBatch) {
     if (!__syncthreads_or(T != 0.0f)) break;  // no pixel adds anything more
     const int m = min(kBwdBatch, count - base);
@@ -515,18 +468,13 @@ blend_backward_kernel(const float* __restrict__ feat, const int32_t* __restrict_
         if (hit) {
           const float w = gm.alpha * T;
           const float v = color_dot(s, j, dr, dg, db);
-          float suffix;  // sum over the later entries of w_k v_k
-          if constexpr (!kPass1) {
-            pr += static_cast<double>(w) * static_cast<double>(s[5][j]);
-            pg += static_cast<double>(w) * static_cast<double>(s[6][j]);
-            pb += static_cast<double>(w) * static_cast<double>(s[7][j]);
-            suffix = static_cast<float>(static_cast<double>(dr) * (fr - pr) +
-                                        static_cast<double>(dg) * (fg - pg) +
-                                        static_cast<double>(db) * (fb - pb));
-          } else {
-            prefix += static_cast<double>(w) * static_cast<double>(v);
-            suffix = static_cast<float>(S - prefix);
-          }
+          pr += static_cast<double>(w) * static_cast<double>(s[5][j]);
+          pg += static_cast<double>(w) * static_cast<double>(s[6][j]);
+          pb += static_cast<double>(w) * static_cast<double>(s[7][j]);
+          // sum over the later entries of w_k v_k
+          const float suffix = static_cast<float>(static_cast<double>(dr) * (fr - pr) +
+                                                  static_cast<double>(dg) * (fg - pg) +
+                                                  static_cast<double>(db) * (fb - pb));
           const float d_alpha = T * v - (suffix + dTT) / (1.0f - gm.alpha);
           const float d_ae = gm.alpha < kAlphaMax ? d_alpha : 0.0f;
           const float d_pow = gm.power < 0.0f ? d_ae * s[8][j] * gm.e : 0.0f;
@@ -542,30 +490,21 @@ blend_backward_kernel(const float* __restrict__ feat, const int32_t* __restrict_
           term[8] = d_ae * gm.e;
           T *= 1.0f - gm.alpha;
         }
-        if constexpr (kNoReduce) {
-#pragma unroll
-          for (int k = 0; k < kFeat; ++k) total[k] += term[k];
-        } else if (__any_sync(kFull, hit)) {
+        if (__any_sync(kFull, hit)) {
           int k;
           const float sum = reduce_scatter9(term, lane, k);
           if (k >= 0 && sum != 0.0f) atomicAdd(red + j * kFeat + k, sum);
         }
       }
     }
-    if constexpr (!kNoReduce) {
-      __syncthreads();
-      for (int q = i; q < m * kFeat; q += kPix) {
-        const int j = q / kFeat, k = q % kFeat;
-        const float sum = red[q];
-        red[q] = 0.0f;
-        if (sg[j] >= 0 && sum != 0.0f)
-          atomicAdd(d_feat + static_cast<int64_t>(kFeat) * sg[j] + k, sum);
-      }
+    __syncthreads();
+    for (int q = i; q < m * kFeat; q += kPix) {
+      const int j = q / kFeat, k = q % kFeat;
+      const float sum = red[q];
+      red[q] = 0.0f;
+      if (sg[j] >= 0 && sum != 0.0f)
+        atomicAdd(d_feat + static_cast<int64_t>(kFeat) * sg[j] + k, sum);
     }
-  }
-  if constexpr (kNoReduce) {
-#pragma unroll
-    for (int k = 0; k < kFeat; ++k) out[kFeat * p + k] = total[k];
   }
 }
 
@@ -591,9 +530,6 @@ bool launch_blend(int mode, int n_tiles, const BlendArgs& a, cudaStream_t s) {
     case kBlendNoLists:
       blend_kernel<kState, kBlendNoLists><<<kSplit * n_tiles, kThreadsB, 0, s>>>(PIXIE_BLEND_ARGS);
       return true;
-    case kBlendAlpha:
-      blend_kernel<kState, kBlendAlpha><<<kSplit * n_tiles, kThreadsB, 0, s>>>(PIXIE_BLEND_ARGS);
-      return true;
     default:
       return false;
   }
@@ -604,10 +540,9 @@ bool launch_blend(int mode, int n_tiles, const BlendArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// mode 0 is the shipped blend; the ablations: 1 nolists, 2 alpha (the gate
-// of every pair, no compositing).  state (H*W, 4) double, or null: each pixel's colour before
-// the background (summed in double) and its final T, which the backward
-// reads instead of walking twice
+// mode 0 is the shipped blend, 1 nolists (the tests' reference for the
+// lists).  state (H*W, 4) double, or null: each pixel's colour before the
+// background (summed in double) and its final T, which the backward reads
 int pixie_gs_blend(int mode, const float* feat, const int32_t* idx, const int32_t* starts,
                    const int32_t* counts, int n_feat, int n_idx, int n_tiles, int tx_n,
                    float bg, float* img, float* trans, double* state, void* stream) {
@@ -621,29 +556,15 @@ int pixie_gs_blend(int mode, const float* feat, const int32_t* idx, const int32_
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode 0 is the shipped backward, into d_feat (N, 9) zeroed by the caller,
-// reading state (H*W, 4) that the forward kept; the ablation modes: 2
-// noreduce (per-pixel sums into out (H*W, 9) instead), 4 pass1 (S and
-// T_final from a first walk, not from state)
-int pixie_gs_blend_backward(int mode, const float* feat, const int32_t* idx,
-                            const int32_t* starts, const int32_t* counts, int n_feat, int n_idx,
-                            int n_tiles, int tx_n, float bg, const float* d_img,
-                            const float* d_trans, const double* state, float* d_feat, float* out,
-                            void* stream) {
-  if (n_tiles > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PIXIE_BWD_LAUNCH(M)                                                                  \
-  blend_backward_kernel<M><<<n_tiles, kPix, 0, s>>>(feat, idx, starts, counts, n_feat, n_idx, \
-                                                    tx_n, tx_n * kTile, bg, d_img, d_trans,  \
-                                                    state, d_feat, out)
-    switch (mode) {
-      case 0: PIXIE_BWD_LAUNCH(0); break;
-      case kBwdNoReduce: PIXIE_BWD_LAUNCH(kBwdNoReduce); break;
-      case kBwdPass1: PIXIE_BWD_LAUNCH(kBwdPass1); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef PIXIE_BWD_LAUNCH
-  }
+// d_feat (N, 9) zeroed by the caller; state (H*W, 4) as the forward kept it
+int pixie_gs_blend_backward(const float* feat, const int32_t* idx, const int32_t* starts,
+                            const int32_t* counts, int n_feat, int n_idx, int n_tiles, int tx_n,
+                            float bg, const float* d_img, const float* d_trans,
+                            const double* state, float* d_feat, void* stream) {
+  if (n_tiles > 0)
+    blend_backward_kernel<<<n_tiles, kPix, 0, static_cast<cudaStream_t>(stream)>>>(
+        feat, idx, starts, counts, n_feat, n_idx, tx_n, tx_n * kTile, bg, d_img, d_trans, state,
+        d_feat);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,14 +33,6 @@ from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
 from pixie_tpu_torch.sim.types import MPMConfig, MPMState
 
 CONSTITUTIVE_LAUNCHES = 0
-# layouts of the kernel's 36-byte row accesses (csrc/constitutive.cu): one
-# thread a row, or the block's rows staged through shared memory with
-# 16-byte coalesced accesses; SHIPPED is the one the pass launches (0.1081
-# against 0.1294 ms at 500k config-5 particles, NVIDIA H100 80GB HBM3,
-# 700 W; PERF.md), the other an ablation that chip_smoke.py times and no
-# path of the port calls
-LAYOUTS = {"rows": 0, "staged": 1}
-SHIPPED = "staged"
 
 OUTPUTS = ("F", "stress", "mu", "lam", "yield_stress")
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -49,8 +41,8 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = load_library("constitutive")
     if not getattr(lib, "_pixie_typed", False):
-        lib.pixie_constitutive.argtypes = ([_c_int] + [_c_void_p] * 14 + [_c_int]
-                                           + [_c_float] * 6 + [_c_int, _c_void_p])
+        lib.pixie_constitutive.argtypes = ([_c_void_p] * 14 + [_c_int] + [_c_float] * 6
+                                           + [_c_int, _c_void_p])
         lib.pixie_constitutive.restype = _c_int
         lib.pixie_error_string.argtypes = [_c_int]
         lib.pixie_error_string.restype = ctypes.c_char_p
@@ -83,20 +75,12 @@ def constitutive_pass(state: MPMState, cfg: MPMConfig, dt,
     if dev.type != "cuda":
         raise ValueError(f"constitutive_pass: unsupported device {dev}")
     global CONSTITUTIVE_LAUNCHES
-    new = _launch(LAYOUTS[SHIPPED], state, cfg, dt, out)
+    new = _launch(state, cfg, dt, out)
     CONSTITUTIVE_LAUNCHES += 1
     return new
 
 
-def constitutive_variant(layout: str, state: MPMState, cfg: MPMConfig, dt) -> MPMState:
-    """The kernel with one of its ``LAYOUTS`` on CUDA tensors; not counted
-    in CONSTITUTIVE_LAUNCHES."""
-    if state.F_trial.device.type != "cuda":
-        raise ValueError(f"constitutive {layout}: a kernel layout, CUDA only")
-    return _launch(LAYOUTS[layout], state, cfg, dt)
-
-
-def _launch(layout: int, state: MPMState, cfg: MPMConfig, dt, out=None) -> MPMState:
+def _launch(state: MPMState, cfg: MPMConfig, dt, out=None) -> MPMState:
     n, dev, f32 = state.n_particles, state.F_trial.device, torch.float32
     for name, shape in (("F_trial", (n, 3, 3)), ("F", (n, 3, 3)), ("stress", (n, 3, 3)),
                         ("mu", (n,)), ("lam", (n,)), ("yield_stress", (n,)), ("bulk", (n,))):
@@ -110,9 +94,9 @@ def _launch(layout: int, state: MPMState, cfg: MPMConfig, dt, out=None) -> MPMSt
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.pixie_constitutive(
-        layout, *(getattr(state, k).data_ptr() for k in ("F_trial", "F", "stress", "mu",
-                                                          "lam", "yield_stress", "material",
-                                                          "bulk", "selection")),
+        *(getattr(state, k).data_ptr() for k in ("F_trial", "F", "stress", "mu", "lam",
+                                                  "yield_stress", "material", "bulk",
+                                                  "selection")),
         *(out[k].data_ptr() for k in OUTPUTS), n, float(dt), float(cfg.hardening),
         float(cfg.xi), float(cfg.alpha), float(cfg.plastic_viscosity), float(cfg.softening),
         material_mask(cfg), stream)

@@ -36,10 +36,6 @@ from pixie_tpu_torch.sim.constitutive import compute_stress_from_F_trial
 from pixie_tpu_torch.sim.types import MPMConfig, MPMState
 
 FUSED_LAUNCHES = 0
-# kernel schedules (csrc/fused_substep.cu): the shipped run sums, and the
-# ablation that chip_smoke.py times and no path of the port calls: the
-# substep without its splat
-SCHEDULES = {"run_sums": 0, "nosplat": 1}
 
 # fields the substep rewrites in place (besides the grid it returns)
 UPDATED_FIELDS = ("x", "v", "C", "F", "F_trial", "stress", "mu", "lam", "yield_stress",
@@ -52,7 +48,7 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = load_library("fused_substep")
     if not getattr(lib, "_pixie_typed", False):
-        lib.pixie_fused_substep.argtypes = ([_c_int] + [_c_void_p] * 17 + [_c_int, _c_int]
+        lib.pixie_fused_substep.argtypes = ([_c_void_p] * 17 + [_c_int, _c_int]
                                             + [_c_float] * 9 + [_c_int, _c_int, _c_void_p])
         lib.pixie_fused_substep.restype = _c_int
         lib.pixie_error_string.argtypes = [_c_int]
@@ -102,22 +98,12 @@ def fused_substep(state: MPMState, grid_v: torch.Tensor, cfg: MPMConfig, dt,
     if state.x.device.type != "cuda":
         raise ValueError(f"fused_substep: unsupported device {state.x.device}")
     global FUSED_LAUNCHES
-    grid = _launch(SCHEDULES["run_sums"], state, grid_v, cfg, dt, active)
+    grid = _launch(state, grid_v, cfg, dt, active)
     FUSED_LAUNCHES += 1
     return grid
 
 
-def fused_substep_variant(schedule: str, state: MPMState, grid_v: torch.Tensor, cfg: MPMConfig,
-                          dt, active: torch.Tensor):
-    """A schedule of the kernel on CUDA tensors (``SCHEDULES``): the grid, or
-    None for ``nosplat``.  Not counted in FUSED_LAUNCHES."""
-    if state.x.device.type != "cuda":
-        raise ValueError(f"fused_substep {schedule}: a kernel ablation, CUDA only")
-    grid = _launch(SCHEDULES[schedule], state, grid_v, cfg, dt, active)
-    return None if schedule == "nosplat" else grid
-
-
-def _launch(schedule: int, state: MPMState, grid_v, cfg: MPMConfig, dt, active):
+def _launch(state: MPMState, grid_v, cfg: MPMConfig, dt, active):
     n, g, dev, f32 = state.n_particles, cfg.n_grid, state.x.device, torch.float32
     for name, shape in (("x", (n, 3)), ("v", (n, 3)), ("C", (n, 3, 3)), ("F", (n, 3, 3)),
                         ("F_trial", (n, 3, 3)), ("stress", (n, 3, 3)), ("mu", (n,)),
@@ -133,7 +119,7 @@ def _launch(schedule: int, state: MPMState, grid_v, cfg: MPMConfig, dt, active):
     grid = torch.zeros((g, g, g, 4), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.pixie_fused_substep(
-        schedule, *(getattr(state, k).data_ptr() for k in UPDATED_FIELDS),
+        *(getattr(state, k).data_ptr() for k in UPDATED_FIELDS),
         state.mass.data_ptr(), state.vol.data_ptr(), state.material.data_ptr(),
         state.bulk.data_ptr(), active.data_ptr(), grid_v.data_ptr(), grid.data_ptr(),
         n, g, cfg.dx, cfg.inv_dx, float(dt), float(cfg.hardening), float(cfg.xi),

@@ -44,11 +44,9 @@ ALPHA_MAX = 0.99
 
 BLEND_LAUNCHES = 0
 BLEND_BWD_LAUNCHES = 0
-# ablation modes of the kernels (csrc/gs_stream.cu flags): timed by
-# chip_smoke.py, called by no path of the port.  The forward's: without the
-# per-warp entry lists, and the gate of every pair without compositing
-BLEND_MODES = {"nolists": 1, "alpha": 2}
-BWD_MODES = {"noreduce": 2, "pass1": 4}
+# the forward kernel without its per-warp entry lists (csrc/gs_stream.cu
+# mode 1): the tests' bitwise reference that the lists drop no hit
+BLEND_MODES = {"nolists": 1}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -59,8 +57,8 @@ def _lib() -> ctypes.CDLL:
         lib.pixie_gs_blend.argtypes = [_c_int] + [_c_void_p] * 4 + [_c_int] * 4 + [
             _c_float] + [_c_void_p] * 4
         lib.pixie_gs_blend.restype = _c_int
-        lib.pixie_gs_blend_backward.argtypes = [_c_int] + [_c_void_p] * 4 + [_c_int] * 4 + [
-            _c_float] + [_c_void_p] * 6
+        lib.pixie_gs_blend_backward.argtypes = [_c_void_p] * 4 + [_c_int] * 4 + [
+            _c_float] + [_c_void_p] * 5
         lib.pixie_gs_blend_backward.restype = _c_int
         lib.pixie_error_string.argtypes = [_c_int]
         lib.pixie_error_string.restype = ctypes.c_char_p
@@ -262,11 +260,11 @@ def _blend_forward(feat, idx, starts, counts, tx_n: int, bg: float, keep_state: 
 
 def blend_forward_variant(mode: str, feat, idx, starts, counts, tx_n: int, bg: float = 0.0,
                           keep_state: bool = False):
-    """The blend kernel on CUDA tensors in an ablation mode (``BLEND_MODES``,
-    or "shipped"): (img, trans, state or None).  Not counted in
+    """The blend kernel on CUDA tensors in a mode of ``BLEND_MODES``, or
+    "shipped": (img, trans, state or None).  Not counted in
     BLEND_LAUNCHES."""
     if feat.device.type != "cuda":
-        raise ValueError(f"blend {mode}: a kernel ablation, CUDA only")
+        raise ValueError(f"blend {mode}: a kernel mode, CUDA only")
     return _launch_forward({"shipped": 0, **BLEND_MODES}[mode], feat, idx, starts, counts, tx_n, bg,
                            keep_state)
 
@@ -288,29 +286,23 @@ def _launch_forward(mode: int, feat, idx, starts, counts, tx_n: int, bg: float,
     return img, trans, state
 
 
-def _launch_backward(mode: int, feat, idx, starts, counts, tx_n: int, bg: float, d_img,
-                     d_trans, state):
+def _launch_backward(feat, idx, starts, counts, tx_n: int, bg: float, d_img, d_trans, state):
     n, m, n_tiles = _check(feat, idx, starts, counts, tx_n)
     h, w = n_tiles // tx_n * TILE, tx_n * TILE
     check_tensor("d_img", d_img, (h, w, 3), torch.float32, feat.device)
     check_tensor("d_trans", d_trans, (h, w), torch.float32, feat.device)
-    if mode != BWD_MODES["pass1"]:
-        if state is None:
-            raise ValueError("blend backward: the kernel reads the forward's state "
-                             "(blend_forward(..., keep_state=True))")
-        check_tensor("state", state, (h * w, 4), torch.float64, feat.device)
-    per_pixel = mode == BWD_MODES["noreduce"]
-    out = torch.zeros((h * w, 9) if per_pixel else (n, 9), dtype=torch.float32,
-                      device=feat.device)
+    if state is None:
+        raise ValueError("blend backward: the kernel reads the forward's state "
+                         "(blend_forward(..., keep_state=True))")
+    check_tensor("state", state, (h * w, 4), torch.float64, feat.device)
+    d_feat = torch.zeros((n, 9), dtype=torch.float32, device=feat.device)
     lib = _lib()
     code = lib.pixie_gs_blend_backward(
-        mode, feat.data_ptr(), idx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        n, m, n_tiles, tx_n, float(bg), d_img.data_ptr(), d_trans.data_ptr(),
-        0 if state is None else state.data_ptr(),
-        0 if per_pixel else out.data_ptr(), out.data_ptr() if per_pixel else 0,
-        _stream(feat.device))
+        feat.data_ptr(), idx.data_ptr(), starts.data_ptr(), counts.data_ptr(), n, m, n_tiles,
+        tx_n, float(bg), d_img.data_ptr(), d_trans.data_ptr(), state.data_ptr(),
+        d_feat.data_ptr(), _stream(feat.device))
     raise_on_error(lib, code, "gs blend backward")
-    return out
+    return d_feat
 
 
 def blend_backward(feat, idx, starts, counts, tx_n: int, bg: float, d_img, d_trans,
@@ -323,20 +315,9 @@ def blend_backward(feat, idx, starts, counts, tx_n: int, bg: float, d_img, d_tra
     if feat.device.type != "cuda":
         raise ValueError(f"blend backward: unsupported device {feat.device}")
     global BLEND_BWD_LAUNCHES
-    d_feat = _launch_backward(0, feat, idx, starts, counts, tx_n, bg, d_img, d_trans, state)
+    d_feat = _launch_backward(feat, idx, starts, counts, tx_n, bg, d_img, d_trans, state)
     BLEND_BWD_LAUNCHES += 1
     return d_feat
-
-
-def blend_backward_variant(mode: str, feat, idx, starts, counts, tx_n: int, bg: float, d_img,
-                           d_trans, state=None):
-    """An ablation of the backward kernel on CUDA tensors (``BWD_MODES``):
-    d feat (N, 9) (pass1), or each pixel's 9 terms summed over its entries,
-    (H*W, 9) (noreduce).  Not counted in BLEND_BWD_LAUNCHES."""
-    if feat.device.type != "cuda":
-        raise ValueError(f"blend backward {mode}: a kernel ablation, CUDA only")
-    return _launch_backward(BWD_MODES[mode], feat, idx, starts, counts, tx_n, bg, d_img,
-                            d_trans, state)
 
 
 class _Blend(torch.autograd.Function):

@@ -201,17 +201,22 @@ def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     return run_frame(state, bcs, time0, dt, n_substeps, substep)
 
 
+def _resorts(step: int) -> bool:
+    """Whether a frame re-sorts its particles at substep ``step``."""
+    return step % RESORT_EVERY == 0
+
+
 def run_frame(state: MPMState, bcs, time0, dt, n_substeps: int, substep) -> MPMState:
-    """The frame loop of ``simulate_substeps``: ``substep(state, bcs, t,
-    resort) -> (state, order)`` at t = f32(time0) + f32(step) * f32(dt),
-    with ``resort`` at substep 0 and every RESORT_EVERY; the particle BCs'
-    masks follow each order, and the state returns in the caller's order.
-    The frame is the span ``sim.frame``."""
+    """The frame loop of ``simulate_substeps`` and ``simulate_substeps_fused``:
+    ``substep(state, bcs, t, resort) -> (state, order)`` at t = f32(time0) +
+    f32(step) * f32(dt), with ``resort`` at substep 0 and every
+    RESORT_EVERY; the particle BCs' masks follow each order, and the state
+    returns in the caller's order.  The frame is the span ``sim.frame``."""
     frame = None     # the state's particle i is the caller's particle frame[i]
     with obs.span("sim.frame"):
         for step in range(n_substeps):
             t = np.float32(time0 + np.float32(step) * dt)
-            state, order = substep(state, bcs, t, step % RESORT_EVERY == 0)
+            state, order = substep(state, bcs, t, _resorts(step))
             if order is not None:
                 bcs = _permute_bcs(bcs, order)
                 frame = order if frame is None else frame[order]
@@ -231,7 +236,7 @@ def frame_plan(bcs, time0, dt, n_substeps: int) -> tuple[str, ...]:
     for step in range(n_substeps):
         t = np.float32(time0 + np.float32(step) * dt)
         keys = tuple(b.host_key(t, dt) for b in bcs)
-        if (step % RESORT_EVERY == 0 or None in keys
+        if (_resorts(step) or None in keys
                 or any(k for b, k in zip(bcs, keys) if isinstance(b, bc_mod.PARTICLE_BC_TYPES))
                 or (captured is not None and keys != captured)):
             plan.append("eager")
@@ -350,40 +355,64 @@ def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     assert not any(isinstance(b, bc_mod.PARTICLE_BC_TYPES) for b in bcs), \
         "the fused frame takes no particle BCs (use simulate_substeps)"
     time0, dt = np.float32(time0), np.float32(dt)
-    with obs.span("sim.frame"):
-        node_x = node_positions(cfg, state.device) if any(
-            isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    node_x = node_positions(cfg, state.device) if any(
+        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    return run_frame(state, bcs, time0, dt, n_substeps,
+                     _FusedSubsteps(cfg, dt, node_x, n_substeps))
+
+
+class _FusedSubsteps:
+    """``run_frame``'s substep in a fused frame.  Call k runs, at t_k: on
+    call 0 the prologue (stress(0) + P2G(0), the state and its active mask
+    permuted into P2G's cell order where it returns one); the grid stage;
+    where ``resort`` is set and 0 < k < S-1, a fresh cell sort; then one
+    fused substep, or on call S-1 G2P.  Returns the state and the order it
+    was permuted by (None if it kept its order).  The stages go through
+    their modules at call time."""
+
+    def __init__(self, cfg: MPMConfig, dt, node_x, n_substeps: int):
+        self.cfg, self.dt, self.node_x, self.last = cfg, dt, node_x, n_substeps - 1
+        self.k = 0
+        self.grid = self.active = None
+        self.sorted = False    # the prologue's P2G returned a cell order (on the card)
+
+    def __call__(self, state: MPMState, bcs, t, resort: bool):
+        cfg, dt, k = self.cfg, self.dt, self.k
+        self.k += 1
+        order = None
+        if k == 0:
+            state, order = self._prologue(state)
+        with obs.span("sim.grid"):
+            grid_v = grid_update(self.grid, cfg, dt, t, bcs, self.node_x)
+        if k == self.last:
+            with obs.span("sim.g2p"):
+                return g2p(state, grid_v, cfg, dt), order
+        if resort and k and self.sorted:
+            with obs.span("sim.resort"):
+                order = transfer.cell_order(state.x, self.active, cfg)
+                state, self.active = permute_state(state, order), self.active[order]
+        if k % RUN_LENGTH_EVERY == 0 and obs.enabled():
+            with obs.span("sim.run_length"):
+                live, runs = fs.run_counts(state.x, self.active, cfg)
+                obs.count("fused.live_lanes", live)
+                obs.count("fused.runs", runs)
+        with obs.span("sim.fused"):
+            self.grid = fs.fused_substep(state, grid_v, cfg, dt, self.active)
+        return state, order
+
+    def _prologue(self, state: MPMState):
+        cfg, dt = self.cfg, self.dt
         with obs.span("sim.constitutive"):
             state = constitutive.constitutive_pass(state, cfg, dt)
-        active = state.selection == 0
+        self.active = state.selection == 0
         with obs.span("sim.p2g"):
-            grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
-                                       state.vol, active, cfg, dt, return_order=True)
+            self.grid, order = transfer.p2g(state.x, state.v, state.C, state.stress, state.mass,
+                                            state.vol, self.active, cfg, dt, return_order=True)
         if order is not None:
+            self.sorted = True
             with obs.span("sim.resort"):
-                state, active = permute_state(state, order), active[order]
-        for step in range(n_substeps - 1):
-            t = np.float32(time0 + np.float32(step) * dt)
-            with obs.span("sim.grid"):
-                grid_v = grid_update(grid, cfg, dt, t, bcs, node_x)
-            if order is not None and step and step % RESORT_EVERY == 0:
-                with obs.span("sim.resort"):
-                    again = transfer.cell_order(state.x, active, cfg)
-                    state, active, order = (permute_state(state, again), active[again],
-                                            order[again])
-            if step % RUN_LENGTH_EVERY == 0 and obs.enabled():
-                with obs.span("sim.run_length"):
-                    live, runs = fs.run_counts(state.x, active, cfg)
-                    obs.count("fused.live_lanes", live)
-                    obs.count("fused.runs", runs)
-            with obs.span("sim.fused"):
-                grid = fs.fused_substep(state, grid_v, cfg, dt, active)
-        t = np.float32(time0 + np.float32(n_substeps - 1) * dt)
-        with obs.span("sim.grid"):
-            grid_v = grid_update(grid, cfg, dt, t, bcs, node_x)
-        with obs.span("sim.g2p"):
-            state = g2p(state, grid_v, cfg, dt)
-        return state if order is None else _caller_order(state, order)
+                state, self.active = permute_state(state, order), self.active[order]
+        return state, order
 
 
 def _unpack_cov(c):

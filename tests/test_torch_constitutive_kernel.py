@@ -120,8 +120,6 @@ def test_pass_refuses_other_devices():
     meta = MPMState(**{k: v.to("meta") for k, v in vars(st).items()})
     with pytest.raises(ValueError, match="unsupported device"):
         ops_const.constitutive_pass(meta, _cfg(range(8)), DT)
-    with pytest.raises(ValueError, match="CUDA only"):
-        ops_const.constitutive_variant("staged", st, _cfg(range(8)), DT)
 
 
 # -- the card: B7 against the plain pass --------------------------------------------------------
@@ -177,13 +175,11 @@ def _assert_b7_close(got, want, label):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("layout", ["pass", "rows", "staged"])
-def test_constitutive_kernel_matches_plain(cuda_device, layout, offset):
-    """B7 (as shipped through ``constitutive_pass``, and each layout) on
-    4133 particles (a last block of 37) against the plain pass on the CPU:
-    every return-map branch taken, inactive rows copied exactly, the input
-    tensors untouched, one launch counted a call of the pass and none a
-    call of a layout."""
+def test_constitutive_kernel_matches_plain(cuda_device, offset):
+    """B7 through ``constitutive_pass`` on 4133 particles (a last block of
+    37) against the plain pass on the CPU: every return-map branch taken,
+    inactive rows copied exactly, the input tensors untouched, one launch
+    counted a call."""
     from chip_smoke import _branches
 
     st, cfg = _card_state(4133)
@@ -193,14 +189,10 @@ def test_constitutive_kernel_matches_plain(cuda_device, layout, offset):
     dev_st = _to(st, cuda_device, offset)
     before = {k: t.clone() for k, t in vars(dev_st).items()}
     launches = ops_const.CONSTITUTIVE_LAUNCHES
-    if layout == "pass":
-        got = ops_const.constitutive_pass(dev_st, cfg, DT)
-        assert ops_const.CONSTITUTIVE_LAUNCHES == launches + 1
-    else:
-        got = ops_const.constitutive_variant(layout, dev_st, cfg, DT)
-        assert ops_const.CONSTITUTIVE_LAUNCHES == launches
+    got = ops_const.constitutive_pass(dev_st, cfg, DT)
+    assert ops_const.CONSTITUTIVE_LAUNCHES == launches + 1
     torch.cuda.synchronize()
-    _assert_b7_close(got, want, f"{layout}, offset {offset}")
+    _assert_b7_close(got, want, f"offset {offset}")
     for k, t in before.items():
         assert torch.equal(getattr(dev_st, k), t), k
     inactive = to_np(st.selection) != 0

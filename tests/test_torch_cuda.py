@@ -473,8 +473,8 @@ def test_blend_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 
 def _blend_modes(bins, dev, bg=0.3, keep_state=True):
-    """The shipped forward kernel and its nolists ablation (no per-warp
-    entry lists) on the same inputs: {mode: (img, trans, state)}."""
+    """The shipped forward kernel and its nolists mode (no per-warp entry
+    lists) on the same inputs: {mode: (img, trans, state)}."""
     args = [t.to(dev) for t in (bins.feat, bins.idx, bins.starts, bins.counts)]
     return {m: gs_stream.blend_forward_variant(m, *args, bins.tx_n, bg, keep_state)
             for m in ("shipped", "nolists")}
@@ -484,7 +484,7 @@ def test_blend_kernel_all_opaque_tile_and_a_full_tile(cuda_device):
     """One tile under 300 opaque splats (T reaches exactly 0 at every pixel
     after ~25: the block stops early) and one at tile_cap 1024 of faint
     ones: both against the plain version (atol 1e-4), and the per-warp
-    lists drop no hit (bitwise against the nolists ablation)."""
+    lists drop no hit (bitwise against the nolists mode)."""
     rng = np.random.default_rng(4)
     n_opaque, n_faint = 300, 1024
     feat = np.zeros((n_opaque + n_faint, 9), np.float32)
@@ -512,7 +512,7 @@ def test_blend_kernel_all_opaque_tile_and_a_full_tile(cuda_device):
 
 def test_blend_kernel_nan_opacity_and_conic(cuda_device):
     """A NaN opacity or a NaN conic fails the gate, as in the plain version:
-    the image matches it (atol 1e-4) and the nolists ablation bit for bit."""
+    the image matches it (atol 1e-4) and the nolists mode bit for bit."""
     bins = _splat_bins(n=600, tile_cap=512)
     feat = bins.feat.clone()
     busy = torch.argsort(bins.counts, descending=True)[:2]
@@ -550,15 +550,12 @@ def _underflow_bins():
                        R.Camera(64, 64, 64.0, 64.0, 32.0, 32.0), tile_cap=256)
 
 
-def _backward_on(dev, args, tx_n, bg, di, dt, mode=None):
+def _backward_on(dev, args, tx_n, bg, di, dt):
     """The CUDA backward as training runs it: the forward keeps its state,
-    the backward reads it; ``mode`` an ablation of gs_stream.BWD_MODES."""
+    the backward reads it."""
     args = [t.to(dev) for t in args]
     state = gs_stream.blend_forward(*args, tx_n, bg, keep_state=True)[2]
-    di, dt = di.to(dev), dt.to(dev)
-    if mode is None:
-        return gs_stream.blend_backward(*args, tx_n, bg, di, dt, state)
-    return gs_stream.blend_backward_variant(mode, *args, tx_n, bg, di, dt, state)
+    return gs_stream.blend_backward(*args, tx_n, bg, di.to(dev), dt.to(dev), state)
 
 
 @pytest.mark.parametrize("case", ["random", "underflow", "tile_cap_truncated"])
@@ -607,17 +604,16 @@ def test_blend_backward_kernel_nan_opacity_and_empty_tiles(cuda_device):
     assert float(zero.abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("mode", [None, "pass1"])
-def test_blend_backward_kernel_alpha_clamp(cuda_device, mode):
+def test_blend_backward_kernel_alpha_clamp(cuda_device):
     """The underflow scene, whose stacked splats sit at the 0.99 clamp at
-    their centres (d alpha dropped there): the shipped kernel and its pass1
-    ablation (S from a first walk) hold BWD_RTOL per column."""
+    their centres (d alpha dropped there): the kernel holds BWD_RTOL per
+    column."""
     bins = _underflow_bins()
     args = (bins.feat, bins.idx, bins.starts, bins.counts)
     assert float(bins.feat[:, 8].max()) > 0.99   # opacity sigmoid(6) = 0.9975
     di, dt = _cotangents(bins)
     want = gs_stream.blend_backward_plain(*args, bins.tx_n, 0.3, di, dt)
-    _assert_columns_close(_backward_on(cuda_device, args, bins.tx_n, 0.3, di, dt, mode), want)
+    _assert_columns_close(_backward_on(cuda_device, args, bins.tx_n, 0.3, di, dt), want)
 
 
 def test_blend_backward_needs_the_forward_state(cuda_device):
@@ -756,8 +752,7 @@ def _fused_order(st, cfg, order):
 def test_fused_substep_kernel_in_three_orders(cuda_device, order):
     """B6 on particles in the given order, sorted by cell and in a cell order
     gone stale: grid and particle fields by B6's criterion against the
-    plain version; the substep without its splat writes the same particle
-    fields."""
+    plain version."""
     st, cfg, grid_v = _fused_case((0, 1, 2, 3, 5, 6), True)
     st = _fused_order(st, cfg, order)
     want = _to(st, "cpu", fs.UPDATED_FIELDS)
@@ -768,11 +763,6 @@ def test_fused_substep_kernel_in_three_orders(cuda_device, order):
     grid_got = fs.fused_substep(got, grid_v.to(cuda_device), cfg, DT, got.selection == 0)
     assert fs.FUSED_LAUNCHES == before + 1
     _assert_fused_close(got, grid_got, want, grid_want)
-    bare = _to(st, cuda_device, fields)
-    assert fs.fused_substep_variant("nosplat", bare, grid_v.to(cuda_device), cfg, DT,
-                                    bare.selection == 0) is None
-    for k in fs.UPDATED_FIELDS:
-        assert torch.equal(getattr(bare, k), getattr(got, k)), k
 
 
 def test_fused_frame_on_cuda_resorts_its_order(cuda_device, monkeypatch):

@@ -92,6 +92,26 @@ def test_fused_frames_equal_unfused_frames_bitwise(update_cov):
     assert np.isfinite(to_np(ref.x)).all()
 
 
+def test_fused_frames_of_no_substep_and_of_one():
+    """A fused frame of no substeps returns its state unchanged, as the
+    unfused frame does; one of a single substep equals the unfused one bit
+    for bit."""
+    d = _mixed_inputs(n=300, seed=5)
+    cfg = MPMConfig(**_cfg_kw(True))
+    bcs = (_collider(),)
+    start = _torch_state(d)
+    got = tsolver.simulate_substeps_fused(_torch_state(d), cfg, bcs, 0.0, DT, 0)
+    ref = tsolver.simulate_substeps(_torch_state(d), cfg, bcs, 0.0, DT, 0)
+    for k in FIELDS:
+        assert torch.equal(getattr(got, k), getattr(start, k)), k
+        assert torch.equal(getattr(ref, k), getattr(start, k)), k
+    got = tsolver.simulate_substeps_fused(_torch_state(d), cfg, bcs, 0.0, DT, 1)
+    ref = tsolver.simulate_substeps(_torch_state(d), cfg, bcs, 0.0, DT, 1)
+    for k in FIELDS:
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    assert not torch.equal(got.x, start.x)
+
+
 def test_fused_substep_plain_is_the_rotated_composition():
     """One call against its three pieces, in place, inactive rows untouched."""
     from pixie_tpu_torch.ops import transfer
