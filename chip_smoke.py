@@ -8,7 +8,7 @@ at full width.
 Phases (any failure exits non-zero):
   1. device   — a CUDA device is required; prints nvidia-smi's name/power limit
   2. build    — nvcc builds pixie_tpu_torch/csrc/{transfer,gs_stream,
-                fused_substep,constitutive,probe_ablation,gather}.cu for
+                fused_substep,constitutive,grid,probe_ablation,gather}.cu for
                 sm_90a, one nvcc per source, started together
   3. kernels  — P2G (B1: bin keys, torch.sort, binned splat) vs its plain
                 version in three cases (the slice's state: 100k particles,
@@ -32,7 +32,12 @@ Phases (any failure exits non-zero):
                 strained F, by B6's criterion on F, stress, mu, lam and the
                 yield stress, the input state untouched, its time beside
                 the plain pass and the bound, and the ptxas reports of B7
-                and B6; a torch.profiler
+                and B6; the grid stage (B8) vs the plain grid_update on the
+                card, bit for bit, on a seeded grid with empty nodes at
+                n_grid 120 under the scene's BCs (gravity, damping, the
+                sticky ground) and at 50 under the tree's (g = 0, damping,
+                two still cuboids), its time beside the plain version's and
+                the bound (28 B a node), and its ptxas report; a torch.profiler
                 count of launches, wall and device time a substep, unfused
                 (the frame's state in a cell order and in the caller's, in
                 turns) and fused; the tile blend (B3, tile_cap 512)
@@ -168,8 +173,8 @@ Phases (any failure exits non-zero):
                 two cards) for 3 steps against one process: the loss within
                 1e-4, every gradient within 1e-3 of its scale, ms a step,
                 peak memory a rank; (e) python -m pixie_tpu_torch.examples.
-                jelly_drop's main at 10k particles for 2 frames (800 B1 and
-                B2 launches) and pipeline_cli_e2e in a subprocess, every
+                jelly_drop's main at 10k particles for 2 frames (800 B1, B2
+                and B8 launches) and pipeline_cli_e2e in a subprocess, every
                 artifact present
  12. capture  — the capture stages and the Blender boundary on the host (no
                 kernel): pipeline.download_assets (without objaverse: a
@@ -220,7 +225,7 @@ PROBE_P2G = ("probe_p2g_full", "probe_p2g_noweights", "probe_p2g_noatomics",
              "probe_p2g_minimal")
 GATHERS = ("gather_axis0", "gather_axis1")
 KERNELS = ("p2g", "g2p", "gs_blend", "gs_blend_backward", "fused_substep",
-           "constitutive") + PROBE_P2G + GATHERS
+           "constitutive", "grid") + PROBE_P2G + GATHERS
 # stated tolerances of phase 3, relative to the largest |value| of the plain
 # result: P2G sums ~170 float atomics per node in run-dependent order; G2P
 # sums 27 terms in a fixed order but contracts multiply-adds (FMA) where the
@@ -353,7 +358,7 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def _reset_counts() -> None:
-    from pixie_tpu_torch.ops import (constitutive, fused_substep, gather, gs_stream,
+    from pixie_tpu_torch.ops import (constitutive, fused_substep, gather, grid, gs_stream,
                                      probe_ablation, transfer)
     from pixie_tpu_torch.sim import solver
 
@@ -362,32 +367,35 @@ def _reset_counts() -> None:
     gs_stream.BLEND_LAUNCHES = gs_stream.BLEND_BWD_LAUNCHES = 0
     fused_substep.FUSED_LAUNCHES = 0
     constitutive.CONSTITUTIVE_LAUNCHES = 0
+    grid.GRID_LAUNCHES = 0
     probe_ablation.LAUNCHES.update(dict.fromkeys(probe_ablation.MODES, 0))
     gather.LAUNCHES.update({0: 0, 1: 0})
 
 
-def _transfer_runs() -> tuple[int, int, int]:
-    """The times B1, B2 and B7 ran: their wrappers' launches, less the
+def _transfer_runs() -> tuple[int, int, int, int]:
+    """The times B1, B2, B7 and B8 ran: their wrappers' launches, less the
     unfused frames' CUDA-graph captures (each calls every wrapper once and
-    runs nothing), plus the graphs' replays (each runs all three once)."""
-    from pixie_tpu_torch.ops import constitutive, transfer
+    runs nothing), plus the graphs' replays (each runs all four once; B8
+    once while a substep's grid BCs fit one table, as on every path here)."""
+    from pixie_tpu_torch.ops import constitutive, grid, transfer
     from pixie_tpu_torch.sim import solver
 
     extra = solver.GRAPH_REPLAYS - solver.GRAPH_CAPTURES
     return (transfer.P2G_LAUNCHES + extra, transfer.G2P_LAUNCHES + extra,
-            constitutive.CONSTITUTIVE_LAUNCHES + extra)
+            constitutive.CONSTITUTIVE_LAUNCHES + extra, grid.GRID_LAUNCHES + extra)
 
 
 def _read_counts() -> dict:
-    """Kernel runs by name (B1, B2 and B7 as ``_transfer_runs`` counts them)."""
+    """Kernel runs by name (B1, B2, B7 and B8 as ``_transfer_runs`` counts
+    them)."""
     from pixie_tpu_torch.ops import fused_substep, gather, gs_stream, probe_ablation
 
-    p2g, g2p, b7 = _transfer_runs()
+    p2g, g2p, b7, b8 = _transfer_runs()
     return {"p2g": p2g, "g2p": g2p,
             "gs_blend": gs_stream.BLEND_LAUNCHES,
             "gs_blend_backward": gs_stream.BLEND_BWD_LAUNCHES,
             "fused_substep": fused_substep.FUSED_LAUNCHES,
-            "constitutive": b7,
+            "constitutive": b7, "grid": b8,
             **{f"probe_p2g_{m}": probe_ablation.LAUNCHES[m] for m in probe_ablation.MODES},
             **{f"gather_axis{a}": gather.LAUNCHES[a] for a in (0, 1)}}
 
@@ -413,7 +421,7 @@ def phase_device():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     for src in ("transfer.cu", "gs_stream.cu", "fused_substep.cu", "constitutive.cu",
-                "probe_ablation.cu", "gather.cu", "mpm.cuh"):
+                "grid.cu", "probe_ablation.cu", "gather.cu", "mpm.cuh"):
         if not (HERE / "pixie_tpu_torch" / "csrc" / src).exists():
             fail(f"pixie_tpu_torch sources not found beside {Path(__file__).name}")
     print(f"nvidia-smi: {_smi()}", flush=True)
@@ -428,16 +436,17 @@ def phase_device():
             print(f"module {mod}: absent")
 
 
-LIBRARIES = ("transfer", "gs_stream", "fused_substep", "constitutive", "probe_ablation", "gather")
+LIBRARIES = ("transfer", "gs_stream", "fused_substep", "constitutive", "grid", "probe_ablation",
+             "gather")
 
 
 def phase_build():
-    from pixie_tpu_torch.ops import (build, constitutive, fused_substep, gather, gs_stream,
-                                     probe_ablation, transfer)
+    from pixie_tpu_torch.ops import (build, constitutive, fused_substep, gather, grid,
+                                     gs_stream, probe_ablation, transfer)
 
     t0 = time.time()
     build.load_libraries(*LIBRARIES)  # one nvcc per source, all at once
-    for mod in (transfer, gs_stream, fused_substep, constitutive, probe_ablation, gather):
+    for mod in (transfer, gs_stream, fused_substep, constitutive, grid, probe_ablation, gather):
         mod.build()
     print(f"build: {', '.join(n + '.cu' for n in LIBRARIES)} in {time.time() - t0:.2f} s",
           flush=True)
@@ -990,6 +999,105 @@ def phase_constitutive(dev) -> dict:
     return {"max_abs_err": err, "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None, "cases": cases}
+
+
+def _grid_p2g(cfg, dev, seed: int = 23):
+    """A seeded (G, G, G, 4) grid as P2G leaves it: momenta ~ N(0, 1e-3),
+    masses in [1e-6, 1e-3], 60 % of the nodes empty (the scene's particles
+    fill 15 % of its volume), 1 % with a mass at or below 1e-15."""
+    import torch
+
+    g = cfg.n_grid
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    grid = torch.empty((g, g, g, 4), device=dev)
+    grid[..., :3] = 1e-3 * torch.randn((g, g, g, 3), generator=gen, device=dev)
+    grid[..., 3] = 1e-6 + (1e-3 - 1e-6) * torch.rand((g, g, g), generator=gen, device=dev)
+    grid[torch.rand((g, g, g), generator=gen, device=dev) < 0.6] = 0.0
+    tiny = torch.rand((g, g, g), generator=gen, device=dev) < 0.01
+    grid[..., 3] = torch.where(tiny, 1e-15 * torch.rand((g, g, g), generator=gen, device=dev),
+                               grid[..., 3])
+    return grid
+
+
+# float32 operations of B8 a node: 3 divisions, 3 sums of dt*g and 3
+# damping products; a collider entry 8 (3 differences, 3 products, 2
+# sums), a cuboid 6 (3 differences, 3 comparisons)
+GRID_NODE_OPS, GRID_COLLIDER_OPS, GRID_CUBOID_OPS = 9, 8, 6
+
+
+def phase_grid(dev) -> dict:
+    """B8 (ops/grid.py, csrc/grid.cu) against the plain grid stage on the
+    card (grid_momentum_to_velocity, then apply_grid_bcs on the frame's node
+    positions), bit for bit, on a seeded grid with empty nodes
+    (_grid_p2g): at n_grid 120 under the scene's BCs (gravity, damping
+    0.9999, the sticky ground at z 0.2) and at 50 under the tree's (g = 0,
+    damping 0.9999, two still cuboids); one launch a call, the grid left as
+    it was; each timed behind a sleep kernel (the better of two turns, each
+    the median of 30; the grid warm in L2 as P2G leaves it) against the
+    plain version and the bound (28 B a node); B8's ptxas report."""
+    import numpy as np
+    import torch
+
+    from pixie_tpu_torch.ops import grid as grid_op
+    from pixie_tpu_torch.scripts.timing import time_calls
+    from pixie_tpu_torch.sim import bc as bc_mod
+    from pixie_tpu_torch.sim import solver
+    from pixie_tpu_torch.sim.types import MPMConfig
+
+    dt = np.float32(DT)
+    scene = (MPMConfig(**MULTI_CFG),
+             (bc_mod.make_surface_collider((1.5, 1.5, 0.2), (0.0, 0.0, 1.0), "sticky",
+                                           device=dev),), np.float32(0.0))
+    tree = (MPMConfig(n_grid=N_GRID, grid_lim=GRID_LIM, grid_v_damping_scale=0.9999),
+            tuple(bc_mod.make_cuboid_velocity(p, size, (0.0, 0.0, 0.0), device=dev)
+                  for p, size in (((1.0, 1.0, 0.3), (1.0, 1.0, 0.15)),
+                                  ((1.0, 1.0, 0.62), (0.2, 0.2, 0.21)))), np.float32(0.02))
+    cases = {}
+    for label, (cfg, bcs, t) in (("scene 120^3", scene), ("tree 50^3", tree)):
+        grid = _grid_p2g(cfg, dev)
+        node_x = solver.node_positions(cfg, dev)
+
+        def plain():
+            v = solver.grid_momentum_to_velocity(grid, cfg, dt)
+            return solver.apply_grid_bcs(v, node_x, cfg, dt, t, bcs).contiguous()
+
+        def kernel():
+            return solver.grid_update(grid, cfg, dt, t, bcs)
+
+        before = grid.clone()
+        launches = grid_op.GRID_LAUNCHES
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if grid_op.GRID_LAUNCHES != launches + 1:
+            fail(f"grid_update on CUDA tensors did not launch B8 once ({label})")
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if differ:
+            fail(f"B8 differs from the plain grid stage in {differ} words ({label})")
+        if not torch.equal(grid, before):
+            fail(f"B8 wrote its input grid ({label})")
+        nodes = cfg.n_grid ** 3
+        cuboids = sum(isinstance(b, bc_mod.CuboidVelocity) for b in bcs)
+        n_ops = nodes * (GRID_NODE_OPS + GRID_CUBOID_OPS * cuboids
+                         + GRID_COLLIDER_OPS * (len(bcs) - cuboids))
+        row = {"ms": min(statistics.median(time_calls(kernel, [()] * 30, dev))
+                         for _ in range(2)),
+               "plain_ms": min(statistics.median(time_calls(plain, [()] * 30, dev))
+                               for _ in range(2)),
+               "nodes": nodes, **bound(28 * nodes, n_ops)}
+        cases[label] = row
+        print(f"grid stage ({label}, {len(bcs)} BC{'s' * (len(bcs) > 1)}): device ms (the better "
+              f"of two turns, each the median of 30 behind a sleep kernel): {row['ms']:.4f}; "
+              f"plain {row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {28 * nodes / 1e6:.2f} MB); bit for bit equal", flush=True)
+        del grid, node_x, got, want, before
+        torch.cuda.empty_cache()
+    for line in _ptxas("grid"):
+        print(f"grid ptxas: {line}")
+    main_case = cases["scene 120^3"]
+    return {"max_abs_err": 0.0, "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+            "library_ms": None, "cases": cases}
 
 
 @contextlib.contextmanager
@@ -1599,7 +1707,8 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
               f"substeps, materials {info['active_materials']}, "
               f"median frame {info['median_frame_s']:.3f} s; launches {pc_launches}",
               flush=True)
-        if pc_launches != _counts(p2g=substeps, g2p=substeps, constitutive=substeps):
+        if pc_launches != _counts(p2g=substeps, g2p=substeps, constitutive=substeps,
+                                  grid=substeps):
             fail(f"point-cloud launches {pc_launches} != substeps run {substeps}")
         frames = sorted((sim_out / "ply_files").glob("frame_*.ply"))
         if len(frames) != 1:
@@ -1626,7 +1735,7 @@ def phase_slice(dev, gs_dir: Path, d: int = 64, fc: int = 768, model_kwargs: dic
               f"median frame {info['median_frame_s']:.3f} s, median render {info['median_render_ms']:.1f} ms "
               f"(render + PNG + PLY); launches {launches}", flush=True)
         if launches != _counts(p2g=substeps, g2p=substeps, constitutive=substeps,
-                               gs_blend=n_frames):
+                               grid=substeps, gs_blend=n_frames):
             fail(f"GS launches {launches} != {substeps} substeps, {n_frames} frames")
         _check_gs_run(gs_out, info, n_frames, res)
 
@@ -1742,7 +1851,8 @@ def _filling_rollout(dev, root: Path, ply: Path, gs_dir: Path, res: int) -> dict
         fail("particle filling added no particle")
     if not info["final_state_finite"]:
         fail("non-finite positions after the filled rollout")
-    if s != FILL_SUBSTEPS or launches != _counts(p2g=s, g2p=s, constitutive=s, gs_blend=1):
+    if s != FILL_SUBSTEPS or launches != _counts(p2g=s, g2p=s, constitutive=s, grid=s,
+                                                 gs_blend=1):
         fail(f"filling rollout launches {launches} != {FILL_SUBSTEPS} substeps and 1 render")
     _check_gs_run(out, {**info, "n_particles": info["n_particles"] - info["n_filled"],
                         "final_state_finite": info["final_state_finite"]}, 1, res)
@@ -1784,13 +1894,14 @@ def _check_gs_run(gs_out: Path, info: dict, n_frames: int, res: int) -> None:
 def _check_fused_launches(mode: str, info: dict, launches: dict, n_frames: int,
                           gs_blend: int = 0) -> None:
     """Frame 0 holds the tree config's impulse and runs unfused (S P2G, S
-    B7, S G2P); every later frame runs fused (1 B7, 1 P2G, S - 1 fused
-    substeps, 1 G2P)."""
+    B7, S B8, S G2P); every later frame runs fused (1 B7, 1 P2G, S B8, S - 1
+    fused substeps, 1 G2P)."""
     s = info["substeps_per_frame"]
     fused = info["fused_frames"]
     frame_s = info["frame_s"]
     want = _counts(p2g=s + (n_frames - 1), g2p=s + (n_frames - 1), gs_blend=gs_blend,
-                   fused_substep=(n_frames - 1) * (s - 1), constitutive=s + (n_frames - 1))
+                   fused_substep=(n_frames - 1) * (s - 1), constitutive=s + (n_frames - 1),
+                   grid=n_frames * s)
     print(f"mpm ({mode}, fused): {info['n_particles']} particles, {n_frames} frames x {s} "
           f"substeps, fused frames {fused}; frame 0 (unfused, impulse) {s / frame_s[0]:.2f} "
           f"substeps/s, fused frames {s / statistics.median(frame_s[1:]):.2f} substeps/s "
@@ -1960,7 +2071,7 @@ def phase_voxelize(dev, d: int = 64, fc: int = 768, model_kwargs: dict | None = 
         print(f"voxelize: nvidia-smi {_smi()}", flush=True)
         if not mask_range[0] <= int(mask.sum()) <= mask_range[1]:
             fail(f"the voxelizer's mask holds {int(mask.sum())} voxels, outside {mask_range}")
-        if launches != _counts(p2g=s, g2p=s, constitutive=s):
+        if launches != _counts(p2g=s, g2p=s, constitutive=s, grid=s):
             fail(f"voxelize path launches {launches} != substeps run {s}")
         verts = read_ply(ply)["vertex"]
         if len(verts) != int(mask.sum()) or not info["final_state_finite"]:
@@ -2844,7 +2955,8 @@ def phase_vlm(dev, capture: Path, gs_dir: Path, field_dir: Path, d: int = 64,
         print(f"vlm: mpm (point cloud) of segmented_semantics.ply: {info['n_particles']} "
               f"particles, 1 frame x {s} substeps, median frame {info['median_frame_s']:.3f} s; "
               f"launches {launches}", flush=True)
-        if launches != _counts(p2g=s, g2p=s, constitutive=s) or not info["final_state_finite"] or \
+        if launches != _counts(p2g=s, g2p=s, constitutive=s, grid=s) or \
+                not info["final_state_finite"] or \
                 info["n_particles"] != int(mask.sum()):
             fail(f"vlm path launches {launches} != substeps run {s}, or the rollout of "
                  f"{info['n_particles']} particles went non-finite")
@@ -3171,7 +3283,11 @@ def _multi_reference(dev, cfg, totals: dict):
           f"({1e3 / one_ms:.1f} substeps/s); B1/B2 launches {launches}", flush=True)
     if launches != (MULTI_SUBSTEPS, MULTI_SUBSTEPS) or not np.isfinite(ref_x).all():
         fail(f"phase 11 (a): launches {launches} or a non-finite state")
-    _add_counts(totals, _read_counts())
+    counts = _read_counts()
+    if dev.type == "cuda" and counts["grid"] != MULTI_WARMUP + MULTI_SUBSTEPS:
+        fail(f"phase 11 (a): B8 ran {counts['grid']} times in "
+             f"{MULTI_WARMUP + MULTI_SUBSTEPS} substeps")
+    _add_counts(totals, counts)
     del st, ref
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3286,7 +3402,7 @@ def _multi_unet_sp(dev, tmp: Path, d: int, fc: int, model_kwargs, rows: dict) ->
 
 
 def _multi_examples(dev, tmp: Path, jelly: int, cli: bool, totals: dict) -> None:
-    """(e) jelly_drop's main (2 frames, 800 B1 and B2 launches) and
+    """(e) jelly_drop's main (2 frames, 800 B1, B2 and B8 launches) and
     pipeline_cli_e2e in a subprocess, every artifact present."""
     from pixie_tpu_torch.examples import jelly_drop
 
@@ -3297,9 +3413,11 @@ def _multi_examples(dev, tmp: Path, jelly: int, cli: bool, totals: dict) -> None
     _add_counts(totals, counts)
     print(f"multi: (e) jelly_drop --frames 2: {len(jd['plys'])} PLY, frame "
           f"{[round(s, 3) for s in jd['frame_s']]} s; B1/B2 launches "
-          f"{counts['p2g']}/{counts['g2p']}", flush=True)
+          f"{counts['p2g']}/{counts['g2p']}, B8 {counts['grid']}", flush=True)
     if counts["p2g"] != 800 or counts["g2p"] != 800 or not all(p.exists() for p in jd["plys"]):
         fail("phase 11 (e): jelly_drop's launches or PLY")
+    if dev.type == "cuda" and counts["grid"] != 800:
+        fail(f"phase 11 (e): B8 ran {counts['grid']} times in jelly_drop's 800 substeps")
     if not cli:
         return
     t0 = time.time()
@@ -3450,6 +3568,7 @@ def main() -> int:
     kern = phase_kernels(dev)
     kern["fused_substep"] = phase_fused(dev)
     kern["constitutive"] = phase_constitutive(dev)
+    kern["grid"] = phase_grid(dev)
     phase_profile(dev)
     kern["gs_blend"] = phase_blend(dev)
     kern["gs_blend_backward"] = phase_blend_backward(dev)
@@ -3485,6 +3604,7 @@ def main() -> int:
             ("gs_blend_backward", "gs_stream.cu", "pixie_tpu/ops/gs_stream.py:252"),
             ("fused_substep", "fused_substep.cu", "pixie_tpu/ops/fused_substep.py:266"),
             ("constitutive", "constitutive.cu", "none (XLA fused the JAX pass)"),
+            ("grid", "grid.cu", "none (XLA fused the JAX grid stage)"),
             *((name, "probe_ablation.cu", "scripts/probe_kernel_ablation.py:112")
               for name in PROBE_P2G),
             *((name, "gather.cu", "scripts/probe_vmem_gather.py:48") for name in GATHERS)):

@@ -4,11 +4,14 @@ mpm_solver_warp.py:749-1211, decode_param.py:277-396).
 Each BC is a small dataclass holding tensors on the solver's device, an
 ``apply`` method and a ``host_key`` method, which returns what ``apply``
 decides on the host at a time (the solver replays a captured substep only
-while its BCs' keys stay those of the capture).  Time gating is decided on
-the host from float32 scalars:
-the solver passes ``time = f32(time0) + f32(step) * f32(dt)``, exactly the
-JAX scan's expression (pixie_tpu/sim/solver.py:291), and every comparison
-below rounds its operands to float32 first.  A one-substep impulse
+while its BCs' keys stay those of the capture).  A grid BC also keeps float32
+host copies of its vectors (``host``) and a ``table_entry`` method, which
+returns what ``apply`` does at a time as an entry of the table the card's
+grid stage reads (``ops.grid``, ``csrc/grid.cu``).  Time gating is decided
+on the host from float32 scalars: the solver passes
+``time = f32(time0) + f32(step) * f32(dt)``, exactly the JAX scan's
+expression (pixie_tpu/sim/solver.py:291), and every comparison below rounds
+its operands to float32 first.  A one-substep impulse
 (``num_dt: 1``) therefore fires on the same substep as in the JAX package.
 """
 
@@ -29,6 +32,29 @@ def _active(time, start, end) -> bool:
 
 def _vec(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A float32 host copy of one of a BC's vectors, made at construction:
+    the card's grid stage (``ops.grid``) builds its table from these, so a
+    substep reads nothing back from the device."""
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+# an entry of the card's grid-stage table: its kind, as csrc/grid.cu reads
+# it, and ENTRY_FLOATS float32s, a[3], b[3], c[3], friction
+HALFSPACE_ZERO, HALFSPACE_SLIP, HALFSPACE_FRICTION, HALFSPACE_CUT = 0, 1, 2, 3
+BOX_SET, ZERO_ALL, BOUNDING_BOX = 4, 5, 6
+ENTRY_FLOATS = 10
+
+
+def _entry_floats(a=None, b=None, c=None, friction=0.0) -> np.ndarray:
+    vals = np.zeros(ENTRY_FLOATS, np.float32)
+    for i, x in enumerate((a, b, c)):
+        if x is not None:
+            vals[3 * i:3 * i + 3] = x
+    vals[9] = friction
+    return vals
 
 
 class _Windowed:
@@ -53,6 +79,10 @@ class SurfaceCollider(_Windowed):
     start_time: float = 0.0
     end_time: float = 999.0
     legacy_zero_velocity: bool = True
+    host: dict = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.host = {"point": _host(self.point), "normal": _host(self.normal)}
 
     def apply(self, time, dt, grid_v, node_x, cfg):
         if not _active(time, self.start_time, self.end_time):
@@ -84,6 +114,20 @@ class SurfaceCollider(_Windowed):
             )
         return torch.where(inside[..., None], v_new, grid_v)
 
+    def table_entry(self, time, dt):
+        """What ``apply`` does at ``time`` as (kind, the entry's floats:
+        point, normal, friction), or None while inactive."""
+        if not self.host_key(time, dt):
+            return None
+        if self.surface_type == 11:
+            kind = HALFSPACE_CUT
+        elif self.surface_type == 0 or self.legacy_zero_velocity:
+            kind = HALFSPACE_ZERO
+        else:
+            kind = HALFSPACE_SLIP if self.surface_type == 1 else HALFSPACE_FRICTION
+        return kind, _entry_floats(self.host["point"], self.host["normal"],
+                                   friction=self.friction)
+
 
 @dataclasses.dataclass
 class CuboidVelocity:
@@ -102,11 +146,13 @@ class CuboidVelocity:
     end_time: float = 999.0
     reset: int = 0
     still: bool = dataclasses.field(init=False, repr=False, compare=False)
+    host: dict = dataclasses.field(init=False, repr=False, compare=False)
     _held: tuple | None = dataclasses.field(default=None, init=False, repr=False,
                                             compare=False)
 
     def __post_init__(self):
-        self.still = not bool(torch.any(self.velocity != 0))
+        self.host = {k: _host(getattr(self, k)) for k in ("point", "size", "velocity")}
+        self.still = not self.host["velocity"].any()
 
     def apply(self, time, dt, grid_v, node_x, cfg):
         t = _f32(time)
@@ -127,16 +173,35 @@ class CuboidVelocity:
             return None
         return active, self._resets(t, dt, active)
 
+    def table_entry(self, time, dt):
+        """What ``apply`` does at ``time`` as (kind, the entry's floats):
+        while active, the velocity set inside the cuboid (its point at t,
+        size, velocity); in a reset's window, the whole grid zeroed; else
+        None."""
+        t = _f32(time)
+        active = _active(t, self.start_time, self.end_time)
+        if active:
+            return BOX_SET, _entry_floats(self.point_at(t), self.host["size"],
+                                          self.host["velocity"])
+        return (ZERO_ALL, _entry_floats()) if self._resets(t, dt, active) else None
+
     def _resets(self, t, dt, active) -> bool:
         return self.reset == 1 and not active and bool(
             t < _f32(self.end_time) + _f32(15.0) * _f32(dt))
 
+    def _travel(self, t) -> np.float32:
+        return _f32(np.clip(t, _f32(self.start_time), _f32(self.end_time))
+                    - _f32(self.start_time))
+
+    def point_at(self, t) -> np.ndarray:
+        """The cuboid's point at t from the host copies, rounded in float32
+        as ``_inside`` rounds it on the device (a product, then a sum)."""
+        return self.host["point"] + self.host["velocity"] * self._travel(_f32(t))
+
     def _inside(self, t, node_x) -> torch.Tensor:
         if self._held is not None and self._held[0] is node_x:
             return self._held[1]
-        travel = _f32(np.clip(t, _f32(self.start_time), _f32(self.end_time))
-                      - _f32(self.start_time))
-        point = self.point + self.velocity * float(travel)
+        point = self.point + self.velocity * float(self._travel(t))
         inside = torch.all((node_x - point).abs() < self.size, dim=-1)
         if self.still:
             self._held = (node_x, inside)
@@ -164,6 +229,11 @@ class BoundingBox(_Windowed):
             va = torch.where(low[..., a] & (va < 0), 0.0, va)
             out[..., a] = torch.where(high[..., a] & (va > 0), 0.0, va)
         return out
+
+    def table_entry(self, time, dt):
+        """What ``apply`` does at ``time`` as (kind, the entry's floats, all
+        zero), or None while inactive."""
+        return (BOUNDING_BOX, _entry_floats()) if self.host_key(time, dt) else None
 
 
 # -- particle BCs (before P2G) -------------------------------------------------

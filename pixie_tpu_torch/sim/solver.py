@@ -27,6 +27,7 @@ import torch
 
 from pixie_tpu_torch.ops import constitutive
 from pixie_tpu_torch.ops import fused_substep as fs
+from pixie_tpu_torch.ops import grid as grid_op
 from pixie_tpu_torch.ops import transfer
 from pixie_tpu_torch.sim import bc as bc_mod
 from pixie_tpu_torch.sim.svd3 import matmul_nt, svd3
@@ -57,11 +58,21 @@ def node_positions(cfg: MPMConfig, device) -> torch.Tensor:
     return torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), dim=-1)
 
 
+def frame_nodes(cfg: MPMConfig, bcs, device) -> torch.Tensor | None:
+    """The node positions a frame's plain grid stage reads: on the CPU
+    where a grid BC is given, else None (the card's kernel computes them)."""
+    if torch.device(device).type != "cpu" or not any(
+            isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs):
+        return None
+    return node_positions(cfg, device)
+
+
 def apply_grid_bcs(v_out, node_x, cfg: MPMConfig, dt, time, bcs: Sequence):
-    """Grid BCs in insertion order (mpm_solver_warp.py:604-621).  While a
-    tracer is on, a call that applies a cuboid BC (the material field's
-    ground and stationary cuboids) is the span ``sim.grid_bc`` and adds its
-    cuboids to the counter ``sim.bc.grid_cuboids``."""
+    """Grid BCs in insertion order (mpm_solver_warp.py:604-621), the plain
+    version.  While a tracer is on, a call that applies a cuboid BC (the
+    material field's ground and stationary cuboids) is the span
+    ``sim.grid_bc`` and adds its cuboids to the counter
+    ``sim.bc.grid_cuboids``."""
     cuboids = obs.enabled() and sum(isinstance(b, bc_mod.CuboidVelocity) for b in bcs)
     if not cuboids:
         return _apply_grid_bcs(v_out, node_x, cfg, dt, time, bcs)
@@ -79,7 +90,15 @@ def _apply_grid_bcs(v_out, node_x, cfg: MPMConfig, dt, time, bcs: Sequence):
 
 def grid_update(grid, cfg: MPMConfig, dt, time, bcs: Sequence,
                 node_x: torch.Tensor | None = None) -> torch.Tensor:
-    """Momentum -> velocity, gravity, damping, grid BCs."""
+    """Momentum -> velocity, gravity, damping, grid BCs.  On the card one
+    launch of ``ops.grid``'s kernel (B8), which reads no ``node_x``; on the
+    CPU the plain pieces, where the BCs are the span ``sim.grid_bc``.  While
+    a tracer is on, both count the cuboid BCs in ``sim.bc.grid_cuboids``."""
+    if grid.device.type != "cpu":
+        cuboids = obs.enabled() and sum(isinstance(b, bc_mod.CuboidVelocity) for b in bcs)
+        if cuboids:
+            obs.count("sim.bc.grid_cuboids", cuboids)
+        return grid_op.grid_stage(grid, cfg, dt, time, bcs)
     v_out = grid_momentum_to_velocity(grid, cfg, dt)
     if any(isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs):
         if node_x is None:
@@ -191,8 +210,7 @@ def simulate_substeps(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     same inputs, launched by one call.  On the CPU P2G returns no order and
     the state keeps its order, and every substep runs eagerly."""
     time0, dt = np.float32(time0), np.float32(dt)
-    node_x = node_positions(cfg, state.device) if any(
-        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    node_x = frame_nodes(cfg, bcs, state.device)
     if state.device.type == "cuda":
         substep = _GraphedSubsteps(cfg, dt, node_x, frame_plan(bcs, time0, dt, n_substeps))
     else:
@@ -355,8 +373,7 @@ def simulate_substeps_fused(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     assert not any(isinstance(b, bc_mod.PARTICLE_BC_TYPES) for b in bcs), \
         "the fused frame takes no particle BCs (use simulate_substeps)"
     time0, dt = np.float32(time0), np.float32(dt)
-    node_x = node_positions(cfg, state.device) if any(
-        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    node_x = frame_nodes(cfg, bcs, state.device)
     return run_frame(state, bcs, time0, dt, n_substeps,
                      _FusedSubsteps(cfg, dt, node_x, n_substeps))
 

@@ -46,8 +46,8 @@ from pixie_tpu_torch.ops import constitutive, transfer
 from pixie_tpu_torch.parallel.mesh import exchange
 from pixie_tpu_torch.sim import bc as bc_mod
 from pixie_tpu_torch.sim.solver import (
-    _substep, g2p, grid_momentum_to_velocity, apply_grid_bcs, grid_update, node_positions,
-    permute_state, run_frame,
+    _substep, g2p, grid_momentum_to_velocity, apply_grid_bcs, grid_update, frame_nodes,
+    node_positions, permute_state, run_frame,
 )
 from pixie_tpu_torch.sim.types import MPMConfig, MPMState
 
@@ -114,8 +114,7 @@ def simulate_substeps_sharded(state: MPMState, cfg: MPMConfig, bcs, time0, dt,
     the particle BCs, the stress, P2G (B1), the all-reduce, the grid update
     on every rank, G2P (B2).  Returns this rank's rows in their order."""
     time0, dt = np.float32(time0), np.float32(dt)
-    node_x = node_positions(cfg, state.device) if any(
-        isinstance(b, bc_mod.GRID_BC_TYPES) for b in bcs) else None
+    node_x = frame_nodes(cfg, bcs, state.device)
 
     def stage(grid, t):
         dist.all_reduce(grid, group=group)

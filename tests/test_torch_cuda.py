@@ -270,8 +270,9 @@ def test_graphed_frame_matches_the_eager_frame(cuda_device, monkeypatch, case):
 def test_graphed_frame_with_the_tracer_on(cuda_device, monkeypatch):
     """The tracer on: the same captures, replays and wrapper calls as off,
     each replay the span ``sim.graph`` inside ``sim.frame``, the stage spans
-    recorded at the captures and the eager substeps, the tracer's graph
-    counters equal to the module's, and the state within the eager
+    recorded at the captures and the eager substeps (no ``sim.grid_bc``: B8
+    applies the cuboids inside ``sim.grid``, which still counts them), the
+    tracer's graph counters equal to the module's, and the state within the eager
     comparison's bounds of the frame with the tracer off (P2G's atomics
     keep the two runs from agreeing bit for bit)."""
     from pixie_tpu_torch.sim import solver as S
@@ -292,8 +293,10 @@ def test_graphed_frame_with_the_tracer_on(cuda_device, monkeypatch):
     assert tr.counters["sim.graph.replays"] == replays == n - 4
     spans = tr.summary()
     assert spans["sim.graph"]["calls"] == replays
-    for stage in ("sim.constitutive", "sim.p2g", "sim.grid", "sim.grid_bc", "sim.g2p"):
+    for stage in ("sim.constitutive", "sim.p2g", "sim.grid", "sim.g2p"):
         assert spans[stage]["calls"] == 4 + 2, stage
+    assert "sim.grid_bc" not in spans
+    assert tr.counters["sim.bc.grid_cuboids"] == 2 * (4 + 2)
     frame = [i for i, r in enumerate(tr.records) if r[0] == "sim.frame"]
     assert all(r[1] in frame for r in tr.records if r[0] == "sim.graph")
     _assert_frame_close(on, off)
