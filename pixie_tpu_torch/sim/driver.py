@@ -231,7 +231,9 @@ def setup_simulation(params: dict, decoded: tuple, gaussians: dict | None = None
     particles).  Rotations, crop, the transform into the MPM cube, particle
     volumes and the solver's parameters (the span ``sim.setup.particles``),
     then the material field: kNN smoothing, the ground and stationary
-    cuboids (``sim.setup.material_field``), then the config's BCs.  While a
+    cuboids (``sim.setup.material_field``), then the config's BCs.  A
+    config's ``particle_filling`` runs inside ``sim.setup.particles`` as the
+    span ``sim.setup.filling`` (GS mode).  While a
     tracer is on, the counters ``sim.materials.<id>`` hold the particles of
     each material id."""
     device = torch.device(device)
@@ -337,8 +339,9 @@ def _prepare_gaussian_particles(gs, preprocessing_params, material_params, rotat
     -> sim_area crop (crop-excluded gaussians kept for static rendering) ->
     transform2origin + shift2center111 -> MPM-frame covariances
     (apply_cov_rotations * scale_origin**2) -> optional internal particle
-    filling, its scans on ``device`` (filled particles follow the ``gs_num``
-    gaussians with zero covariance and are not rendered).
+    filling, its scans on ``device``, the span ``sim.setup.filling`` (filled
+    particles follow the ``gs_num`` gaussians with zero covariance and are
+    not rendered).
 
     Returns (init_cov_mpm, gs_payload, scale_origin, original_mean_pos, pos_mpm).
     """
@@ -372,16 +375,17 @@ def _prepare_gaussian_particles(gs, preprocessing_params, material_params, rotat
     if filling:
         # the JAX driver's keys (pixie_tpu/sim/driver.py:403-421), the
         # reference's spelling of max_partciels_per_cell included
-        new_mpm = fill_particles(
-            pos_mpm, init_opacity[:, 0], init_cov_mpm,
-            grid_n=filling["n_grid"], max_samples=filling["max_particles_num"],
-            grid_dx=material_params["grid_lim"] / filling["n_grid"],
-            density_thres=filling["density_threshold"],
-            search_thres=filling["search_threshold"],
-            max_particles_per_cell=filling["max_partciels_per_cell"],
-            search_exclude_dir=filling["search_exclude_direction"],
-            ray_cast_dir=filling["ray_cast_direction"],
-            boundary=filling["boundary"], device=device)
+        with obs.span("sim.setup.filling"):
+            new_mpm = fill_particles(
+                pos_mpm, init_opacity[:, 0], init_cov_mpm,
+                grid_n=filling["n_grid"], max_samples=filling["max_particles_num"],
+                grid_dx=material_params["grid_lim"] / filling["n_grid"],
+                density_thres=filling["density_threshold"],
+                search_thres=filling["search_threshold"],
+                max_particles_per_cell=filling["max_partciels_per_cell"],
+                search_exclude_dir=filling["search_exclude_direction"],
+                ray_cast_dir=filling["ray_cast_direction"],
+                boundary=filling["boundary"], device=device)
         if len(new_mpm):
             pos_mpm = np.concatenate([pos_mpm, new_mpm])
             logging.info("particle filling added %d particles", len(new_mpm))

@@ -12,7 +12,10 @@ One-time simulation preprocessing of a GS checkpoint's particles:
     nearest original gaussian through ``material_field.knn``.
 
 ``fill_particles`` draws its jitter from ``np.random.default_rng(seed)`` in
-the JAX package's order, so the same seed gives the same particles.
+the JAX package's order, so the same seed gives the same particles.  While a
+tracer is on (``utils.observability``), it counts the particles each step
+emits (``sim.filling.surface``, ``sim.filling.internal``) and the internal
+cells it finds (``sim.filling.cells``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from pixie_tpu_torch.sim.material_field import knn
 from pixie_tpu_torch.sim.transforms import get_mat_from_upper
+from pixie_tpu_torch.utils import observability as obs
 
 
 def densify_grids(pos, opacity, cov_upper, grid_n: int, grid_dx: float):
@@ -160,6 +164,10 @@ def fill_particles(
         internal = internal & inb
     new_internal = emit_particles_in_cells(internal, count2, grid_dx, max_particles_per_cell,
                                            rng)
+    if obs.enabled():
+        obs.count("sim.filling.surface", len(new_surface))
+        obs.count("sim.filling.internal", len(new_internal))
+        obs.count("sim.filling.cells", int(internal.sum()))
 
     new = np.concatenate([new_surface, new_internal], axis=0)
     budget = max(max_samples - len(pos), 0)
